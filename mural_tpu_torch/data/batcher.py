@@ -1,0 +1,78 @@
+"""Segment-pool batching with fixed batch shapes (counterpart of
+``mural_tpu/data/batcher.py``).
+
+``sampled_segments`` segments are pooled, optionally shuffled, and re-cut
+into ``batch_size`` batches; a short remainder is carried into the next
+pool.  The final remainder is padded and masked (``pad_final``) or
+dropped.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterator, Optional
+
+import numpy as np
+
+from mural_tpu_torch.data.dataset import SiteDataset
+
+
+@dataclass
+class Batch:
+    y: np.ndarray            # (B,) int32
+    cat: np.ndarray          # (B, K) int32
+    distal: np.ndarray       # (B, W) uint8 genome codes
+    n_valid: int
+    rows: np.ndarray         # (B,) int64 dataset row ids (-1 for padding)
+
+
+def iter_batch_rows(ds: SiteDataset, sampled_segments: int,
+                    batch_size: int, shuffle: bool = True,
+                    rng: Optional[np.random.Generator] = None,
+                    pad_final: bool = False):
+    """Yield ``(rows, n_valid)`` pairs in segment-pool order.  Padding
+    rows (with ``pad_final``) are row id 0, ``n_valid`` marks the real
+    prefix."""
+    if rng is None:
+        rng = np.random.default_rng()
+    n_seg = ds.n_segments
+    seg_order = np.arange(n_seg)
+    if shuffle:
+        rng.shuffle(seg_order)
+
+    carry = np.empty(0, dtype=np.int64)
+    for pool_start in range(0, n_seg, sampled_segments):
+        segs = seg_order[pool_start:pool_start + sampled_segments]
+        pool = np.concatenate([carry] + [ds.segment_rows(s) for s in segs])
+        if shuffle:
+            rng.shuffle(pool)
+        n_full = len(pool) // batch_size
+        for b in range(n_full):
+            yield pool[b * batch_size:(b + 1) * batch_size], batch_size
+        carry = pool[n_full * batch_size:]
+
+    if len(carry) and pad_final:
+        pad = np.zeros(batch_size - len(carry), dtype=np.int64)
+        yield np.concatenate([carry, pad]), len(carry)
+
+
+def segment_pool_batches(ds: SiteDataset, sampled_segments: int,
+                         batch_size: int, shuffle: bool = True,
+                         rng: Optional[np.random.Generator] = None,
+                         pad_final: bool = False) -> Iterator[Batch]:
+    """Yield :class:`Batch` objects; with ``shuffle=False`` the rows come
+    in the dataset's segment-emission order."""
+    for rows, n_valid in iter_batch_rows(ds, sampled_segments, batch_size,
+                                         shuffle=shuffle, rng=rng,
+                                         pad_final=pad_final):
+        y = ds.y[rows].copy()
+        cat = ds.cat[rows].copy()
+        distal = ds.gather_distal(rows)
+        out_rows = rows.copy()
+        if n_valid < len(rows):
+            y[n_valid:] = 0
+            cat[n_valid:] = 0
+            distal[n_valid:] = 0
+            out_rows[n_valid:] = -1
+        yield Batch(y=y, cat=cat, distal=distal, n_valid=n_valid,
+                    rows=out_rows)

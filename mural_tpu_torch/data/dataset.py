@@ -1,0 +1,144 @@
+"""Site dataset: local features + distal gather metadata (counterpart of
+``mural_tpu/data/dataset.py``, without track features).
+
+All per-site arrays are in segment emission order, so every segment is a
+contiguous row range.  Distal windows are not materialised: batches
+gather uint8 code windows on demand (:meth:`SiteDataset.gather_distal`).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List
+
+import numpy as np
+
+from mural_tpu_torch.genome import encode as enc
+from mural_tpu_torch.genome.bed import BedFile, segment_sites
+from mural_tpu_torch.genome.fasta import Genome
+
+
+@dataclass
+class SiteDataset:
+    model_type: str                 # 'snv' | 'indel'
+    local_radius: int
+    local_order: int
+    distal_radius: int
+    central_bp: int
+
+    chrom_names: List[str]
+    chrom_codes: List[np.ndarray]
+
+    chrom_id: np.ndarray            # int32
+    start: np.ndarray               # int64 (BED start)
+    stop: np.ndarray                # int64 (BED stop)
+    strand_neg: np.ndarray          # bool
+    y: np.ndarray                   # int32 labels
+    local1: np.ndarray              # int8 (n, 2r+1|2r) order-1 digits
+    cat: np.ndarray                 # int32 (n, n_cat) categorical ids
+
+    seg_offsets: np.ndarray         # int64 (n_segments + 1,)
+
+    @property
+    def n_sites(self) -> int:
+        return len(self.start)
+
+    @property
+    def n_segments(self) -> int:
+        return len(self.seg_offsets) - 1
+
+    @property
+    def n_cont(self) -> int:
+        return 0
+
+    @property
+    def distal_width(self) -> int:
+        return enc.window_size(self.distal_radius, 1, self.model_type)
+
+    def segment_rows(self, seg: int) -> np.ndarray:
+        return np.arange(self.seg_offsets[seg], self.seg_offsets[seg + 1])
+
+    def gather_distal(self, rows: np.ndarray) -> np.ndarray:
+        """uint8 code windows (len(rows), distal_width) for site rows."""
+        rows = np.asarray(rows)
+        width = self.distal_width
+        out = np.empty((len(rows), width), dtype=np.uint8)
+        starts = enc.expanded_start(self.start[rows], self.distal_radius,
+                                    self.model_type)
+        cids = self.chrom_id[rows]
+        neg = self.strand_neg[rows]
+        for cid in np.unique(cids):
+            m = cids == cid
+            out[m] = enc.gather_windows(self.chrom_codes[cid], starts[m],
+                                        width, neg[m])
+        return out
+
+    def position_frame(self) -> Dict[str, np.ndarray]:
+        """chrom/start/end/strand columns in emission order."""
+        return {
+            "chrom": np.asarray(self.chrom_names, dtype=object)[
+                self.chrom_id],
+            "start": self.start,
+            "end": self.stop,
+            "strand": np.where(self.strand_neg, "-", "+"),
+        }
+
+
+def prepare_dataset(bed: "BedFile | str", genome: "Genome | str",
+                    central_bp: int = 300000, local_radius: int = 7,
+                    local_order: int = 3, distal_radius: int = 200,
+                    distal_order: int = 1, model_type: str = "snv",
+                    check_mid: bool = True) -> SiteDataset:
+    """Build a :class:`SiteDataset` from a BED and a genome."""
+    if isinstance(bed, str):
+        bed = BedFile.read(bed)
+    if isinstance(genome, str):
+        genome = Genome.from_fasta(genome)
+    if distal_order != 1:
+        raise NotImplementedError(
+            "distal_order > 1 is reserved in the reference too")
+
+    segments = segment_sites(bed, central_bp)
+    perm = (np.concatenate(segments) if segments
+            else np.empty(0, dtype=np.int64))
+    sizes = np.asarray([len(s) for s in segments], dtype=np.int64)
+    seg_offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+
+    chrom_names = genome.names()
+    name_to_id = {c: i for i, c in enumerate(chrom_names)}
+    try:
+        chrom_id = np.asarray([name_to_id[bed.chrom[i]] for i in perm],
+                              dtype=np.int32)
+    except KeyError as e:
+        raise KeyError(f"BED chromosome {e} not found in reference genome")
+    start = bed.start[perm]
+    stop = bed.stop[perm]
+    strand_neg = bed.strand[perm]
+    y = bed.label[perm]
+    chrom_codes = [genome[c] for c in chrom_names]
+
+    lw = enc.window_size(local_radius, 1, model_type)
+    local_starts = enc.expanded_start(start, local_radius, model_type)
+    local_windows = np.empty((len(perm), lw), dtype=np.uint8)
+    for cid in np.unique(chrom_id):
+        m = chrom_id == cid
+        local_windows[m] = enc.gather_windows(
+            chrom_codes[cid], local_starts[m], lw, strand_neg[m])
+
+    if model_type == "snv" and check_mid:
+        for s in range(len(segments)):
+            enc.check_snv_mid_base(
+                local_windows[seg_offsets[s]:seg_offsets[s + 1]],
+                local_radius)
+
+    local1 = enc.order1_local(local_windows)
+    cat = (enc.kmer_ids(local_windows, local_order) if local_order > 1
+           else local1.astype(np.int32))
+
+    return SiteDataset(
+        model_type=model_type, local_radius=local_radius,
+        local_order=local_order, distal_radius=distal_radius,
+        central_bp=central_bp, chrom_names=chrom_names,
+        chrom_codes=chrom_codes, chrom_id=chrom_id, start=start,
+        stop=stop, strand_neg=strand_neg, y=y.astype(np.int32),
+        local1=local1, cat=cat.astype(np.int32), seg_offsets=seg_offsets)

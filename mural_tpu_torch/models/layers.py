@@ -1,0 +1,120 @@
+"""Building blocks of the SNV towers (counterpart of
+``mural_tpu/models/layers.py:273-458``).
+
+Layout is channels-first ``(N, C, L)``, as in the reference torch model;
+torch's own ``BatchNorm1d`` (eps 1e-5), ``Conv1d`` and ``MaxPool1d``
+(-inf padding, floor length) carry the reference semantics, so none of
+the JAX package's TPU workarounds are needed here.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from mural_tpu_torch.genome.encode import ONE_HOT_TABLE
+
+# (kernel, stride, padding) of the three pools of each tower
+MID_POOLS = ((3, 3, 1), (3, 3, 1), (3, 3, 1))
+LARGE_POOLS = ((15, 15, 7), (7, 7, 3), (3, 3, 1))
+
+# 16 rows: the 15 codes plus a zero row for the sentinel code 15
+_ONE_HOT16 = np.concatenate([ONE_HOT_TABLE, np.zeros((1, 4), np.float32)])
+
+
+def one_hot_from_codes(codes: torch.Tensor,
+                       dtype=torch.float32) -> torch.Tensor:
+    """uint8 genome codes (N, L) -> fractional one-hot (N, L, 4), on the
+    device of ``codes``; code 15 one-hots to zeros."""
+    table = torch.as_tensor(_ONE_HOT16, dtype=dtype, device=codes.device)
+    return table[codes.long()]
+
+
+def BNConv(in_channels: int, out_channels: int, kernel_size: int,
+           relu: bool = False) -> nn.Sequential:
+    """BatchNorm -> Conv1d ('same' zero padding), optional trailing ReLU:
+    the reference's ``conv1``/``conv2``/``conv3`` Sequentials."""
+    layers = [nn.BatchNorm1d(in_channels),
+              nn.Conv1d(in_channels, out_channels, kernel_size,
+                        padding=(kernel_size - 1) // 2)]
+    if relu:
+        layers.append(nn.ReLU())
+    return nn.Sequential(*layers)
+
+
+class ResBlock(nn.Module):
+    """Pre-activation residual block: ReLU->BN->Conv->ReLU->BN->Conv, the
+    residual cropped to the conv output length."""
+
+    def __init__(self, channels: int, kernel_size: int = 3):
+        super().__init__()
+        p = (kernel_size - 1) // 2
+        self.bn1 = nn.BatchNorm1d(channels)
+        self.conv1 = nn.Conv1d(channels, channels, kernel_size, padding=p)
+        self.bn2 = nn.BatchNorm1d(channels)
+        self.conv2 = nn.Conv1d(channels, channels, kernel_size, padding=p)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv1(self.bn1(torch.relu(x)))
+        out = self.conv2(self.bn2(torch.relu(out)))
+        return x[:, :, :out.shape[2]] + out
+
+
+def DistalFC(channels: int, n_class: int, dropout: float) -> nn.Sequential:
+    """BN -> Dropout -> Linear head (keys ``.0`` and ``.2``)."""
+    return nn.Sequential(nn.BatchNorm1d(channels), nn.Dropout(dropout),
+                         nn.Linear(channels, n_class))
+
+
+class ResNetTower(nn.Module):
+    """One distal tower: BN-Conv -> pool -> 2xResBlock + skip -> pool ->
+    BN-Conv -> 2xResBlock + skip -> pool -> BN-Conv-ReLU -> global max.
+
+    Attribute names are the reference's (``conv1``, ``RBs1``, ...);
+    :class:`mural_tpu_torch.models.snv.DualTowers` registers two towers'
+    layers flat under those names (tower 2 with a ``_2`` suffix)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int, pools: Sequence[Sequence[int]]):
+        super().__init__()
+        for name, layer in tower_layers(in_channels, out_channels,
+                                        kernel_size).items():
+            setattr(self, name, layer)
+        self.pools = tuple(tuple(p) for p in pools)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return tower_forward(x, self.conv1, self.RBs1, self.conv2,
+                             self.RBs2, self.conv3, self.pools)
+
+
+def tower_layers(in_channels: int, out_channels: int,
+                 kernel_size: int) -> dict:
+    """The parameterised layers of one tower, by reference name."""
+    c, k = out_channels, kernel_size
+    return {
+        "conv1": BNConv(in_channels, c, k),
+        "RBs1": nn.Sequential(ResBlock(c), ResBlock(c)),
+        "conv2": BNConv(c, c, k),
+        "RBs2": nn.Sequential(ResBlock(c), ResBlock(c)),
+        "conv3": BNConv(c, c, k, relu=True),
+    }
+
+
+def tower_forward(x: torch.Tensor, conv1: nn.Module, RBs1: nn.Module,
+                  conv2: nn.Module, RBs2: nn.Module, conv3: nn.Module,
+                  pools: Sequence[Sequence[int]]) -> torch.Tensor:
+    """One tower's wiring: (N, C_in, L) -> (N, C)."""
+    x = nn.functional.max_pool1d(conv1(x), *pools[0])
+    x = _skip(x, RBs1)
+    x = nn.functional.max_pool1d(x, *pools[1])
+    x = _skip(conv2(x), RBs2)
+    x = nn.functional.max_pool1d(x, *pools[2])
+    return torch.amax(conv3(x), dim=2)
+
+
+def _skip(x: torch.Tensor, blocks: nn.Module) -> torch.Tensor:
+    out = blocks(x)
+    return x[:, :, :out.shape[2]] + out

@@ -1,0 +1,128 @@
+"""SNV network SNVNet2 (counterpart of ``mural_tpu/models/snv.py``; the
+reference's Network2).
+
+The module tree and parameter names are the reference MuRaL state_dict
+keys (``emb_layer``, ``lin_layers.N``, ``bn_layers.N``, ``local_fc.0``,
+``conv1.0/.1``, ``RBs1.0.bn1``, ``distal_fc1.0/.2``, tower 2 with a
+``_2`` suffix), so reference checkpoints load with ``load_state_dict``
+once their duplicate ``*.layer.N.*`` keys and ``num_batches_tracked``
+are dropped (:func:`mural_tpu_torch.train.checkpoint.clean_state_dict`).
+
+Inputs: ``cat (N, K)`` integer k-mer ids and ``distal (N, L, 4)`` one-hot
+(the JAX package's channels-last layout, transposed once inside).
+Output: log-probabilities ``log(clamp((local_p + (d1_p+d2_p)/2)/2,
+1e-9))``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+from torch import nn
+
+from mural_tpu_torch.models.layers import (LARGE_POOLS, MID_POOLS, DistalFC,
+                                           tower_forward, tower_layers)
+
+_EPS = 1e-9
+
+
+def center_crop(x: torch.Tensor) -> torch.Tensor:
+    """Tower 1's +-100 bp centre crop along the last axis."""
+    L = x.shape[-1]
+    return x[..., L // 2 - 100: L // 2 + 100 + 1]
+
+
+class LocalBranch(nn.Module):
+    """Shared k-mer embedding + ReLU(Linear) -> BN -> Dropout trunk."""
+
+    def __init__(self, emb_vocab: int, n_cat: int,
+                 lin_layer_sizes: Sequence[int], emb_dropout: float,
+                 lin_layer_dropouts: Sequence[float]):
+        super().__init__()
+        self._init_local(emb_vocab, n_cat, lin_layer_sizes, emb_dropout,
+                         lin_layer_dropouts)
+
+    def _init_local(self, emb_vocab, n_cat, lin_layer_sizes, emb_dropout,
+                    lin_layer_dropouts):
+        self.n_cat = n_cat
+        self.emb_layer = nn.Embedding(emb_vocab, 5)
+        self.emb_dropout_layer = nn.Dropout(emb_dropout)
+        sizes = [n_cat * 5] + list(lin_layer_sizes)
+        self.lin_layers = nn.ModuleList(
+            nn.Linear(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
+        self.bn_layers = nn.ModuleList(
+            nn.BatchNorm1d(s) for s in lin_layer_sizes)
+        self.dropout_layers = nn.ModuleList(
+            nn.Dropout(p) for p in lin_layer_dropouts)
+
+    def forward_local(self, cat: torch.Tensor) -> torch.Tensor:
+        x = self.emb_layer(cat).reshape(cat.shape[0], self.n_cat * 5)
+        x = self.emb_dropout_layer(x)
+        for lin, bn, drop in zip(self.lin_layers, self.bn_layers,
+                                 self.dropout_layers):
+            x = drop(bn(torch.relu(lin(x))))
+        return x
+
+    forward = forward_local
+
+
+class DualTowers(nn.Module):
+    """The two distal ResNet towers and their FC heads.  Tower 1 sees the
+    +-100 bp centre crop with mid-scale pools, tower 2 the full window
+    with large pools."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int, distal_fc_dropout: float, n_class: int):
+        super().__init__()
+        self._init_towers(in_channels, out_channels, kernel_size,
+                          distal_fc_dropout, n_class)
+
+    def _init_towers(self, in_channels, out_channels, kernel_size,
+                     distal_fc_dropout, n_class):
+        self.in_channels = in_channels
+        for suffix in ("", "_2"):
+            for name, layer in tower_layers(in_channels, out_channels,
+                                            kernel_size).items():
+                setattr(self, name + suffix, layer)
+        self.distal_fc1 = DistalFC(out_channels, n_class, distal_fc_dropout)
+        self.distal_fc2 = DistalFC(out_channels, n_class, distal_fc_dropout)
+
+    def _tower(self, x, suffix, pools):
+        g = lambda name: getattr(self, name + suffix)
+        return tower_forward(x, g("conv1"), g("RBs1"), g("conv2"),
+                             g("RBs2"), g("conv3"), pools)
+
+    def forward_towers(self, distal: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """distal (N, L, C) channels-last -> head logits (d1, d2)."""
+        x = distal[:, :, :self.in_channels].transpose(1, 2)
+        d1 = self.distal_fc1(self._tower(center_crop(x), "", MID_POOLS))
+        d2 = self.distal_fc2(self._tower(x, "_2", LARGE_POOLS))
+        return d1, d2
+
+    forward = forward_towers
+
+
+class SNVNet2(LocalBranch, DualTowers):
+    """Local branch + both towers, probability-space averaged."""
+
+    def __init__(self, emb_vocab: int, n_cat: int,
+                 lin_layer_sizes: Sequence[int], emb_dropout: float,
+                 lin_layer_dropouts: Sequence[float], in_channels: int,
+                 out_channels: int, kernel_size: int,
+                 distal_fc_dropout: float, n_class: int):
+        nn.Module.__init__(self)
+        self._init_local(emb_vocab, n_cat, lin_layer_sizes, emb_dropout,
+                         lin_layer_dropouts)
+        self.local_fc = nn.Sequential(
+            nn.Linear(lin_layer_sizes[-1], n_class))
+        self._init_towers(in_channels, out_channels, kernel_size,
+                          distal_fc_dropout, n_class)
+
+    def forward(self, cat: torch.Tensor,
+                distal: torch.Tensor) -> torch.Tensor:
+        local_p = torch.softmax(self.local_fc(self.forward_local(cat)), 1)
+        d1, d2 = self.forward_towers(distal)
+        distal_p = (torch.softmax(d1, 1) + torch.softmax(d2, 1)) / 2
+        return torch.log(torch.clamp((local_p + distal_p) / 2, min=_EPS))

@@ -1,0 +1,207 @@
+"""Prediction on a BED file (counterpart of
+``mural_tpu/predict/pipeline.py:80-241``; ref MuRaL/scripts/run_predict.py).
+
+Rehydrates the architecture from ``model.config.pkl``, encodes the BED,
+runs batched inference on the device, applies the saved calibrator
+and/or Poisson calibration, and writes the reference's TSV schema
+``chrom start end strand mut_type prob0..N`` sorted by (chrom, start)
+with ``%.4g`` floats (gzip when the path ends in ``.gz``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gzip
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from mural_tpu_torch.calibrate.poisson import poisson_calibrate
+from mural_tpu_torch.data.batcher import segment_pool_batches
+from mural_tpu_torch.data.dataset import prepare_dataset
+from mural_tpu_torch.device import resolve_device
+from mural_tpu_torch.genome.fasta import Genome
+from mural_tpu_torch.models.layers import one_hot_from_codes
+from mural_tpu_torch.models.registry import build_model_from_config
+from mural_tpu_torch.train.checkpoint import (load_calibrator,
+                                              load_checkpoint, load_config)
+
+
+@dataclasses.dataclass
+class PredictOptions:
+    test_data: str
+    ref_genome: str
+    model_path: str
+    model_config_path: str
+    calibrator_path: str = ""
+    pred_file: str = "pred.tsv.gz"
+    poisson_calib: bool = False
+    pred_batch_size: int = 16
+    segment_center: Optional[int] = None
+    bw_paths: Optional[str] = None
+    kmer_corr: List[int] = dataclasses.field(default_factory=list)
+    region_corr: List[int] = dataclasses.field(default_factory=list)
+    pred_time_view: bool = False
+    n_devices: int = 1
+    fused_inference: bool = False      # BN-folded forward + CUDA stem
+    # torch device; None -> the CUDA card (RuntimeError without one)
+    device: Optional[object] = None
+    with_h5: bool = False
+
+
+def _check_ported(opts: PredictOptions) -> None:
+    not_ported = [
+        (opts.kmer_corr, "--kmer_corr", 3),
+        (opts.region_corr, "--region_corr", 3),
+        (opts.with_h5, "--with_h5", 4),
+        (opts.bw_paths, "--bw_paths", 6),
+        (opts.n_devices > 1, "--n_devices > 1", 10),
+    ]
+    for value, flag, item in not_ported:
+        if value:
+            raise NotImplementedError(
+                f"predict {flag} is not ported yet (ROADMAP.md item {item})")
+
+
+def masked_ce_sum(logits: torch.Tensor, y: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Sum over valid rows of -(log_softmax(logits)[y]); the model's
+    log-probabilities are treated as logits, as the reference's
+    CrossEntropyLoss(reduction='sum') does."""
+    logz = torch.logsumexp(logits, dim=1)
+    picked = logits.gather(1, y[:, None])[:, 0]
+    return torch.sum((logz - picked) * mask)
+
+
+def run_predict(opts: PredictOptions, model_type: str = "snv",
+                printer=print) -> Dict[str, np.ndarray]:
+    """Predict every site of ``opts.test_data``; returns the output
+    columns (sorted by chrom, start) and writes ``opts.pred_file``."""
+    _check_ported(opts)
+    start_time = time.time()
+    device = (torch.device(opts.device) if opts.device is not None
+              else resolve_device())
+    # the reference semantics are float32; cuDNN's TF32 default for
+    # convolutions would keep only ~3 decimal digits
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    config = load_config(opts.model_config_path)
+    n_class = config["n_class"]
+    if config.get("n_cont"):
+        raise NotImplementedError(
+            "checkpoints trained with track features are not ported yet "
+            "(ROADMAP.md item 6)")
+    genome = Genome.from_fasta(opts.ref_genome)
+    ds = prepare_dataset(
+        opts.test_data, genome,
+        central_bp=opts.segment_center or config["segment_center"],
+        local_radius=config["local_radius"],
+        local_order=config["local_order"],
+        distal_radius=config["distal_radius"],
+        distal_order=config.get("distal_order", 1), model_type=model_type)
+    printer("test set preprocess time:", time.time() - start_time)
+
+    model = build_model_from_config(config, 0, model_type)
+    load_checkpoint(opts.model_path, model)
+    model.to(device).eval()
+
+    if opts.fused_inference:
+        from mural_tpu_torch.ops.fused_inference import (fold_snv2,
+                                                         snv2_fused_forward)
+        folded = fold_snv2(model)
+
+        def forward(cat, codes):
+            return snv2_fused_forward(folded, cat, codes)
+    else:
+        def forward(cat, codes):
+            return model(cat, one_hot_from_codes(codes))
+
+    test_size = ds.n_sites
+    parts = []
+    B = opts.pred_batch_size
+    row_ids = torch.arange(B, device=device)
+    t_fetch = t_pred = fetch_all = pred_all = 0.0
+    t_loop = time.time()
+    with torch.inference_mode():
+        loss_dev = torch.zeros((), dtype=torch.float32, device=device)
+        t0 = time.time()
+        for count, batch in enumerate(segment_pool_batches(
+                ds, 1, B, shuffle=False, pad_final=True), 1):
+            t1 = time.time()
+            t_fetch += t1 - t0
+            cat = torch.from_numpy(batch.cat).to(device).long()
+            codes = torch.from_numpy(batch.distal).to(device)
+            y = torch.from_numpy(batch.y).to(device).long()
+            logits = forward(cat, codes)
+            # no per-batch host sync: the loss accumulates on the device
+            loss_dev += masked_ce_sum(logits, y,
+                                      (row_ids < batch.n_valid).float())
+            parts.append(logits[:batch.n_valid])
+            t0 = time.time()
+            t_pred += t0 - t1
+            if opts.pred_time_view and count % 500 == 0:
+                printer(f"batch {count}: fetch {t_fetch:.1f}s "
+                        f"predict {t_pred:.1f}s (last 500, async)")
+                fetch_all, pred_all = fetch_all + t_fetch, pred_all + t_pred
+                t_fetch = t_pred = 0.0
+        total_loss = float(loss_dev)
+        logits = (torch.cat(parts).cpu().numpy() if parts
+                  else np.zeros((0, n_class), np.float32))
+    t_out = time.time()
+
+    e = np.exp(logits - logits.max(axis=1, keepdims=True))
+    probs = e / e.sum(axis=1, keepdims=True)
+    if opts.calibrator_path:
+        printer("using calibrator for scaling ...")
+        probs = load_calibrator(opts.calibrator_path).predict_proba(probs)
+    if opts.poisson_calib or model_type == "indel":
+        probs = poisson_calibrate(probs)
+
+    printer("Mean Loss, Total Loss, Test Size:",
+            total_loss / max(test_size, 1), total_loss, test_size)
+
+    pos = ds.position_frame()
+    # stable sort by (chrom name, start); rank[i] = sorted position of
+    # the genome's i-th chromosome name
+    rank = np.argsort(np.argsort(np.asarray(ds.chrom_names)))
+    order = np.lexsort((pos["start"], rank[ds.chrom_id]))
+    out = {name: col[order] for name, col in pos.items()}
+    out["mut_type"] = ds.y[order]
+    for i in range(n_class):
+        out[f"prob{i}"] = probs[order, i]
+    if opts.pred_file:
+        write_tsv(opts.pred_file, out)
+    if opts.pred_time_view:
+        printer(f"time view: preprocess and model load "
+                f"{t_loop - start_time:.3f}s, batch loop {t_out - t_loop:.3f}s"
+                f" (host batch build {fetch_all + t_fetch:.3f}s, copy and "
+                f"forward enqueue {pred_all + t_pred:.3f}s), calibration, "
+                f"sort and output {time.time() - t_out:.3f}s")
+    printer("Total time used: %s seconds" % (time.time() - start_time))
+    return out
+
+
+def _fmt(v: float) -> str:
+    return "" if np.isnan(v) else "%.4g" % v
+
+
+def write_tsv(path: str, cols: Dict[str, np.ndarray]) -> None:
+    """Tab-separated with a header; floats as ``%.4g`` (NaN as an empty
+    field), gzip-compressed when ``path`` ends in ``.gz``."""
+    names = list(cols)
+    prob_names = [n for n in names if n.startswith("prob")]
+    probs = np.stack([cols[n] for n in prob_names], axis=1) if prob_names \
+        else np.zeros((len(cols["start"]), 0))
+    lines = ["\t".join(names)]
+    for i in range(len(cols["start"])):
+        lines.append("\t".join(
+            [str(cols["chrom"][i]), str(cols["start"][i]),
+             str(cols["end"][i]), str(cols["strand"][i]),
+             str(cols["mut_type"][i])] + [_fmt(v) for v in probs[i]]))
+    data = ("\n".join(lines) + "\n").encode()
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "wb") as fh:
+        fh.write(data)

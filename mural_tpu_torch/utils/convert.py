@@ -1,0 +1,91 @@
+"""Weight bridge from the JAX package's Flax variables to the port's
+state_dict (the reference MuRaL key layout).
+
+Input: ``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy
+arrays under Flax names (what a ``mural_tpu`` msgpack checkpoint holds).
+Conv kernels go from Flax (k, in, out) to torch (out, in, k), dense
+kernels from (in, out) to (out, in); ``scale`` becomes ``weight`` and
+``mean``/``var`` become ``running_mean``/``running_var``.  The name map
+is the SNV part of ``mural_tpu/utils/torch_import.py:126-207``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, List, Tuple
+
+import numpy as np
+import torch
+
+_LEAF_NAMES = {"kernel": "weight", "embedding": "weight", "scale": "weight",
+               "bias": "bias", "mean": "running_mean",
+               "var": "running_var"}
+
+
+def torch_prefix(keys: List[str]) -> str:
+    """Flax module path (without the leaf name) -> reference torch module
+    prefix, for the SNV models."""
+    head = keys[0]
+    if head == "local":
+        sub = keys[1]
+        if sub == "emb_layer":
+            return "emb_layer"
+        if sub.startswith("lin_"):
+            return f"lin_layers.{sub[4:]}"
+        if sub.startswith("bn_"):
+            return f"bn_layers.{sub[3:]}"
+    elif head == "local_fc":
+        return "local_fc.0"
+    elif head == "towers":
+        tower = keys[1]
+        if tower.startswith("distal_fc"):
+            return f"{tower}.{ {'bn': 0, 'fc': 2}[keys[2]] }"
+        suffix = "_2" if tower == "tower2" else ""
+        sub = keys[2]
+        if sub in ("conv1", "conv2", "conv3"):
+            return f"{sub}{suffix}.{ {'bn': 0, 'conv': 1}[keys[3]] }"
+        if sub.startswith("RBs"):
+            group, j = sub.split("_")          # RBs1_0 -> RBs1, 0
+            return f"{group}{suffix}.{j}.{keys[3]}"
+    raise KeyError(f"no torch name for Flax path {'/'.join(keys)}")
+
+
+def _leaves(tree: Dict, path: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _leaves(value, path + (key,))
+        else:
+            yield path + (key,), np.asarray(value)
+
+
+def state_dict_from_jax(variables: Dict,
+                        model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The state_dict of ``model`` filled from Flax ``variables``.
+
+    Raises KeyError on a Flax leaf with no torch name or a model entry
+    left unfilled, ValueError on a shape mismatch."""
+    target = {k: v for k, v in model.state_dict().items()
+              if not k.endswith("num_batches_tracked")}
+    out: Dict[str, torch.Tensor] = {}
+    for coll in ("params", "batch_stats"):
+        for keys, arr in _leaves(variables.get(coll, {})):
+            leaf = keys[-1]
+            if leaf not in _LEAF_NAMES:
+                raise KeyError(f"unmapped Flax leaf {'/'.join(keys)}")
+            name = f"{torch_prefix(list(keys[:-1]))}.{_LEAF_NAMES[leaf]}"
+            if leaf == "kernel":
+                arr = arr.transpose(2, 1, 0) if arr.ndim == 3 else arr.T
+            if name not in target:
+                raise KeyError(f"Flax leaf {'/'.join(keys)} maps to "
+                               f"{name}, which the model does not have")
+            if tuple(arr.shape) != tuple(target[name].shape):
+                raise ValueError(
+                    f"shape mismatch for {name}: Flax {arr.shape} vs "
+                    f"torch {tuple(target[name].shape)}")
+            out[name] = torch.from_numpy(np.array(arr)).to(
+                target[name].dtype)
+    missing = sorted(set(target) - set(out))
+    if missing:
+        raise KeyError(f"Flax variables leave model entries unfilled: "
+                       f"{missing}")
+    return out

@@ -12,7 +12,8 @@ setup(
     version=version["__version__"],
     description=("TPU-native framework for base-resolution germline "
                  "mutation rate estimation (MuRaL-compatible)"),
-    packages=find_packages(include=["mural_tpu", "mural_tpu.*"]),
+    packages=find_packages(include=["mural_tpu", "mural_tpu.*",
+                                    "mural_tpu_torch", "mural_tpu_torch.*"]),
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy", "pandas", "scipy"],
     scripts=["bin/mural_snv", "bin/mural_indel"],
@@ -22,5 +23,6 @@ setup(
             "mural_indel_tpu=mural_tpu.cli.mural_indel:main",
         ]
     },
-    package_data={"mural_tpu.native": ["encoder.cpp"]},
+    package_data={"mural_tpu.native": ["encoder.cpp"],
+                  "mural_tpu_torch.ops": ["csrc/*.cu"]},
 )

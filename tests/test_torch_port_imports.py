@@ -1,0 +1,61 @@
+"""The port (mural_tpu_torch) and chip_smoke.py load neither JAX nor any
+module of the JAX package, including while they unpickle a calibrator
+that mural_tpu wrote.  Runs in a subprocess: this test process already
+holds jax."""
+import os
+import pickle
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+
+from mural_tpu.calibrate.dirichlet import FullDirichletCalibrator
+from mural_tpu.calibrate.multinomial import MultinomialRegression
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
+    rng = np.random.default_rng(0)
+    cal = FullDirichletCalibrator()
+    cal.calibrator_ = MultinomialRegression(method="Full")
+    cal.calibrator_.weights_ = rng.normal(size=(4, 5))
+    probs = rng.dirichlet(np.ones(4), size=6)
+    with open(tmp_path / "cal.pkl", "wb") as fh:
+        pickle.dump(cal, fh)
+    np.save(tmp_path / "probs.npy", probs)
+
+    script = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        import numpy as np
+        import mural_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            mural_tpu_torch.__path__, "mural_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        import chip_smoke
+        from mural_tpu_torch.train.checkpoint import load_calibrator
+        cal = load_calibrator({str(tmp_path / 'cal.pkl')!r})
+        out = cal.predict_proba(np.load({str(tmp_path / 'probs.npy')!r}))
+        np.save({str(tmp_path / 'out.npy')!r}, out)
+        banned = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                               "optax", "mural_tpu"))
+        print("MODULES", len(names), type(cal).__module__)
+        print("BANNED", banned)
+    """)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH")
+                  else [])))
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    lines = dict(line.split(" ", 1) for line in res.stdout.splitlines()
+                 if line.startswith(("MODULES", "BANNED")))
+    n_modules, cal_module = lines["MODULES"].split()
+    assert int(n_modules) >= 25
+    assert cal_module == "mural_tpu_torch.calibrate.dirichlet"
+    assert lines["BANNED"] == "[]"
+    np.testing.assert_allclose(np.load(tmp_path / "out.npy"),
+                               cal.predict_proba(probs), rtol=1e-12)
