@@ -1,29 +1,46 @@
 #!/usr/bin/env python3
 """Smoke run of mural_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--n_sites 200000]
+    python3 chip_smoke.py [--seed 0] [--n_sites 200000] [--n_train 60000]
 
 Phases (any failure raises and the script exits non-zero):
 
-1. setup: print the card's name and power limit, build the CUDA kernel
-   K1 (``mural_tpu_torch/ops/csrc/code_conv1d.cu``) with nvcc, write a
-   synthetic FASTA and BED from ``--seed``, and write a checkpoint triple
-   with the port itself: SNVNet2 at the CLI default widths with seeded
-   weights, randomised BN statistics and a seeded FullDirichlet
+1. setup: print the card's name and power limit, build the CUDA kernels
+   (``mural_tpu_torch/ops/csrc/*.cu``: K1 ``code_conv1d``, K2/K3
+   ``code_conv_pool``) with one nvcc each, all started together, write a
+   synthetic FASTA and two BEDs from ``--seed``, and write a checkpoint
+   triple with the port itself: SNVNet2 at the CLI default widths with
+   seeded weights, randomised BN statistics and a seeded FullDirichlet
    calibrator;
-2. K1 against its plain PyTorch version on the card at the main path's
-   shapes (max |diff| <= 1e-5), with timings of the kernel, the plain
-   version and one library call computing the same function
+2. K1 against its plain PyTorch version on the card at the predict
+   path's shapes (max |diff| <= 1e-5), with timings of the kernel, the
+   plain version and one library call computing the same function
    (``F.conv1d`` on a prepared one-hot; a yardstick the port never
    calls) beside the kernel's bound;
-3. the BN-folded fused forward (through K1) against the unfused SNVNet2
+3. K2 (fused stem forward) and K3 (its backward) against their plain
+   versions at both towers' shapes, B in {128, 2048} and a ragged 37:
+   pooled within 1e-6 with identical ``jstar``, dtable within 1e-5 of its
+   largest entry, two K3 runs bit-identical; timings of kernel, plain
+   version and the library composition (``F.conv1d`` + ``F.max_pool1d``
+   on a prepared one-hot, and its autograd backward) beside the bounds;
+4. the BN-folded fused forward (through K1) against the unfused SNVNet2
    on one batch of 4096 (<= 1e-4), and the card's unfused forward
    against the CPU's on a small batch (<= 1e-4);
-4. ``mural_snv predict --fused_inference --pred_batch_size 4096`` through
+5. train steps at the CLI default widths, dropout 0: five Adam steps of
+   128 with the fused stem (K2/K3) against the unfused model (per-step
+   loss within 1e-4), two unfused steps of 16 on the card against the
+   CPU (1e-4), and the step time with the device's busy share;
+6. ``mural_snv predict --fused_inference --pred_batch_size 4096`` through
    the CLI on the synthetic triple: TSV schema, row count, probabilities
    summing to 1, K1 launched twice per batch; then the same without
    ``--fused_inference``, whose rows must agree within ``%.4g``;
-5. a JSON line of the kernels and a timing line.
+7. ``mural_snv train --fused_stem on --epochs 2`` through the CLI on the
+   ``--n_train`` sites: both checkpoint triples, finite metrics,
+   ``progress.csv``, K2 launched twice per train step and validation
+   batch and K3 twice per train step; then ``get_best_model`` and
+   ``predict --fused_inference`` on the best triple; then one epoch with
+   ``--fused_stem off``;
+8. a JSON line of the kernels and a timing line.
 
 The last line of standard output is the device record
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -35,13 +52,19 @@ and are removed at the end.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import gzip
+import io
 import json
 import math
+import os
+import re
 import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -51,8 +74,12 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TOL_KERNEL = 1e-5       # K1 vs plain: both sum the same f32 terms in order
+TOL_K2 = 1e-6           # K2 vs plain: the same f32 sums in the same order
+TOL_K3_REL = 1e-5       # K3 vs plain (index_add_ on the card: atomics)
 TOL_MODEL = 1e-4        # folded vs unfused forward: f32 reassociation
+TOL_STEP = 1e-4         # per-step loss, fused vs unfused and card vs CPU
 BATCH = 4096
+TRAIN_BATCH = 128
 # the reference CLI's SNVNet2 defaults (mural_snv train)
 CONFIG = dict(
     model_no=2, n_class=4, local_radius=7, local_order=3,
@@ -60,6 +87,8 @@ CONFIG = dict(
     local_dropout=0.1, distal_fc_dropout=0.25, distal_radius=200,
     CNN_kernel_size=3, CNN_out_channels=32, segment_center=300000,
     distal_order=1, n_cont=0, emb_dims=[(65, 2)] * 13)
+# (name, pool kernel, pool padding) of each tower's stem, tower 2 first
+STEMS = (("tower 2 (Bx401)", 15, 7), ("tower 1 (Bx201 crop)", 3, 1))
 
 
 def log(*args):
@@ -89,34 +118,72 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def write_inputs(work: Path, rng: np.random.Generator, n_sites: int):
-    """Synthetic genome (two chromosomes, ~4 Mb) and a sorted BED of SNV
-    sites: A under '+' rows, T under '-' rows."""
+def device_ms(fn, iters=20, warmup=3) -> float:
+    """Mean device busy time of ``fn`` (its kernels and copies, summed
+    from a torch.profiler trace) over ``iters`` calls: the kernel's own
+    time, which ``cuda_ms`` hides behind the host's enqueue time when a
+    call is shorter than its Python wrapper."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+
+    def calls():
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+
+    busy = device_busy_ms(calls)
+    if not busy > 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return busy / iters
+
+
+def build_kernels():
+    """Build every kernel library of the port, one nvcc per source, all
+    started together; returns (seconds, {library: nvcc output})."""
+    from mural_tpu_torch.ops import fused_code_conv as fcc
+    from mural_tpu_torch.ops import fused_train_stem as fts
+    libs = (fcc.LIBRARY, fts.LIBRARY)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as ex:
+        list(ex.map(lambda lib: lib.load(), libs))
+    return time.perf_counter() - t0, {lib.name: lib.build_log.strip()
+                                      for lib in libs}
+
+
+def write_inputs(work: Path, rng: np.random.Generator, n_sites: int,
+                 n_train: int):
+    """Synthetic genome (two chromosomes, ~4 Mb) and two sorted BEDs of
+    SNV sites (A under '+' rows, T under '-' rows, uniform labels): one
+    to predict and one to train on."""
     from mural_tpu_torch.genome.fasta import decode_sequence
-    fasta, bed = work / "seq.fa", work / "sites.bed"
+    fasta = work / "seq.fa"
     chroms = {"chr1": 3_000_000, "chr2": 1_000_000}
-    per_chrom = {"chr1": n_sites * 3 // 4}
-    per_chrom["chr2"] = n_sites - per_chrom["chr1"]
-    lines = []
+    beds = {work / "sites.bed": n_sites, work / "train.bed": n_train}
+    lines = {bed: [] for bed in beds}
     with open(fasta, "w") as fh:
         for chrom, n in chroms.items():
             codes = rng.integers(0, 4, size=n).astype(np.uint8)
             codes[rng.integers(0, n, size=n // 1000)] = 14      # N
             fh.write(f">{chrom}\n{decode_sequence(codes)}\n")
-            k = per_chrom[chrom]
-            plus = rng.choice(np.flatnonzero(codes == 0), k // 2,
-                              replace=False)
-            minus = rng.choice(np.flatnonzero(codes == 3), k - k // 2,
-                               replace=False)
-            pos = np.concatenate([plus, minus])
-            strand = np.array(["+"] * len(plus) + ["-"] * len(minus))
-            order = np.argsort(pos, kind="stable")
-            labels = rng.integers(0, 4, size=len(pos))
-            lines += [f"{chrom}\t{p}\t{p + 1}\t.\t{y}\t{s}"
-                      for p, s, y in zip(pos[order], strand[order],
-                                         labels[order])]
-    bed.write_text("\n".join(lines) + "\n")
-    return str(fasta), str(bed)
+            for bed, total in beds.items():
+                k = total * 3 // 4 if chrom == "chr1" else total - total \
+                    * 3 // 4
+                plus = rng.choice(np.flatnonzero(codes == 0), k // 2,
+                                  replace=False)
+                minus = rng.choice(np.flatnonzero(codes == 3), k - k // 2,
+                                   replace=False)
+                pos = np.concatenate([plus, minus])
+                strand = np.array(["+"] * len(plus) + ["-"] * len(minus))
+                order = np.argsort(pos, kind="stable")
+                labels = rng.integers(0, 4, size=len(pos))
+                lines[bed] += [f"{chrom}\t{p}\t{p + 1}\t.\t{y}\t{s}"
+                               for p, s, y in zip(pos[order], strand[order],
+                                                  labels[order])]
+    for bed, rows in lines.items():
+        bed.write_text("\n".join(rows) + "\n")
+    return str(fasta), str(work / "sites.bed"), str(work / "train.bed")
 
 
 def write_checkpoint(work: Path, seed: int):
@@ -144,29 +211,78 @@ def write_checkpoint(work: Path, seed: int):
     return path, model
 
 
-def k1_bound(shapes, k, C):
-    """Least time for K1's work on ``shapes`` [(B, L), ...]: the bytes it
-    must move (codes in, table and bias in, f32 output out) over the
-    memory rate, or its adds over the float32 rate, whichever is
-    larger."""
-    n_bytes = sum(B * L + B * L * C * 4 for B, L in shapes) \
-        + len(shapes) * (k * 16 * C + C) * 4
-    n_ops = sum(B * L * C * k for B, L in shapes)
+def bound(n_bytes: float, n_ops: float):
+    """Least time (ms) for moving ``n_bytes`` and doing ``n_ops`` float32
+    operations on the card, and which of the two sets it."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernel(model, dev, gen):
+def k1_bound(shapes, k, C):
+    """K1 on ``shapes`` [(B, L), ...]: codes in, table and bias in, f32
+    output out; k adds per output."""
+    n_bytes = sum(B * L + B * L * C * 4 for B, L in shapes) \
+        + len(shapes) * (k * 16 * C + C) * 4
+    return bound(n_bytes, sum(B * L * C * k for B, L in shapes))
+
+
+def stem_calls(B, k, C):
+    """[(B, L, pk, pp, P, conv positions inside a pool window)] of one
+    train step's two stem calls."""
+    from mural_tpu_torch.ops.fused_train_stem import pool_out_len
+    out = []
+    for (_, pk, pp), L in zip(STEMS, (401, 201)):
+        P = pool_out_len(L, pk, pp)
+        out.append((B, L, pk, pp, P, min(L + pp, P * pk) - pp))
+    return out
+
+
+def k2_bound(B, k, C):
+    """K2, both towers: codes, table and bias in; pooled f32 and uint8
+    jstar out; k tap and bias adds and one compare per conv output."""
+    calls = stem_calls(B, k, C)
+    n_bytes = sum(B * L + B * C * P * 5 + (k * 16 * C + C) * 4
+                  for B, L, _, _, P, _ in calls)
+    return bound(n_bytes, sum(B * lv * C * (k + 1)
+                              for B, _, _, _, _, lv in calls))
+
+
+def k3_bound(B, k, C):
+    """K3, both towers: codes, uint8 jstar and f32 g in; dtable out; k
+    adds per pooled output."""
+    calls = stem_calls(B, k, C)
+    n_bytes = sum(B * L + B * C * P * 5 + k * 16 * C * 4
+                  for B, L, _, _, P, _ in calls)
+    return bound(n_bytes, sum(B * C * P * k for B, _, _, _, P, _ in calls))
+
+
+def folded_stem(conv1):
+    """(table, bias) of a stem's BN + conv at its running statistics."""
+    import torch
+    from mural_tpu_torch.ops.fused_code_conv import fold_bn_conv_table
+    bn, conv = conv1[0], conv1[1]
+    with torch.no_grad():
+        return fold_bn_conv_table(conv.weight, conv.bias, bn.weight, bn.bias,
+                                  bn.running_mean, bn.running_var)
+
+
+def one_hot16(codes, k):
+    """(B, L) codes -> (B, 16, L + k - 1) float32 one-hot of the
+    sentinel-padded codes: the library yardstick's prepared input."""
+    import torch.nn.functional as F
+    from mural_tpu_torch.ops.fused_code_conv import SENTINEL
+    p = (k - 1) // 2
+    padded = F.pad(codes.long(), (p, p), value=SENTINEL)
+    return F.one_hot(padded, 16).float().transpose(1, 2).contiguous()
+
+
+def phase_k1(model, dev, gen):
     """K1 against its plain version and the library yardstick."""
     import torch
     import torch.nn.functional as F
     from mural_tpu_torch.ops import fused_code_conv as fcc
-    stem = model.conv1_2
-    with torch.no_grad():
-        table, bias = fcc.fold_bn_conv_table(
-            stem[1].weight, stem[1].bias, stem[0].weight, stem[0].bias,
-            stem[0].running_mean, stem[0].running_var)
+    table, bias = folded_stem(model.conv1_2)
     k, _, C = table.shape
     full = torch.randint(0, 15, (BATCH, 401), generator=gen,
                          dtype=torch.uint8).to(dev)
@@ -188,14 +304,8 @@ def phase_kernel(model, dev, gen):
         err = max(err, e)
 
     # the library yardstick: one conv over a prepared 16-channel one-hot
-    p = (k - 1) // 2
     weight = table.permute(2, 1, 0).contiguous()            # (C, 16, k)
-
-    def one_hot16(codes):
-        padded = F.pad(codes.long(), (p, p), value=fcc.SENTINEL)
-        return F.one_hot(padded, 16).float().transpose(1, 2).contiguous()
-
-    oh_full, oh_crop = one_hot16(full), one_hot16(crop)
+    oh_full, oh_crop = one_hot16(full, k), one_hot16(crop, k)
     lib = F.conv1d(oh_full, weight, bias)
     e_lib = (lib.transpose(1, 2) - fcc.code_conv1d(full, table, bias)
              ).abs().max().item()
@@ -216,28 +326,120 @@ def phase_kernel(model, dev, gen):
         F.conv1d(oh_full, weight, bias)
         F.conv1d(oh_crop, weight, bias)
 
-    ms_k1, ms_plain, ms_lib = (cuda_ms(batch_kernel), cuda_ms(batch_plain),
-                               cuda_ms(batch_library))
-    per_shape = {}
-    for name, codes, oh in ((f"{BATCH}x401", full, oh_full),
-                            (f"{BATCH}x201 crop", crop, oh_crop)):
-        per_shape[name] = {
-            "ms": cuda_ms(lambda: fcc.code_conv1d(codes, table, bias)),
-            "plain_ms": cuda_ms(
-                lambda: fcc.code_conv1d_reference(codes, table, bias)),
-            "library_ms": cuda_ms(lambda: F.conv1d(oh, weight, bias)),
-            "bound_ms": k1_bound([tuple(codes.shape)], k, C)[0]}
     bound_ms, bound_by = k1_bound([(BATCH, 401), (BATCH, 201)], k, C)
-    return {"max_abs_err": err, "ms": ms_k1, "plain_ms": ms_plain,
-            "library_ms": ms_lib, "bound_ms": bound_ms,
-            "bound_by": bound_by, "per_shape": per_shape}
+    return {"max_abs_err": err, "ms": device_ms(batch_kernel),
+            "plain_ms": device_ms(batch_plain),
+            "library_ms": device_ms(batch_library),
+            "call_ms": cuda_ms(batch_kernel),
+            "plain_call_ms": cuda_ms(batch_plain),
+            "library_call_ms": cuda_ms(batch_library),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_k2_k3(model, dev, gen):
+    """K2 and K3 against their plain versions, and their timings beside
+    the library composition and the bounds."""
+    import torch
+    from mural_tpu_torch.ops import fused_train_stem as fts
+    tables = [folded_stem(model.conv1_2), folded_stem(model.conv1)]
+    k, _, C = tables[0][0].shape
+    err_k2 = err_k3 = rel_k3 = 0.0
+    timings = {}
+    for B in (TRAIN_BATCH, 2048, 37):
+        full = torch.randint(0, 15, (B, 401), generator=gen,
+                             dtype=torch.uint8).to(dev)
+        inputs = (full, full[:, 100:301])
+        grads, jstars = [], []
+        for (name, pk, pp), codes, (table, bias) in zip(STEMS, inputs,
+                                                        tables):
+            pooled, jstar = fts.code_conv_pool_forward(codes, table, bias,
+                                                       pk, pp)
+            ref, ref_j = fts.code_conv_pool_reference(codes, table, bias,
+                                                      pk, pp)
+            g = torch.randn(pooled.shape, generator=gen).to(dev)
+            dt = fts.code_conv_pool_backward(codes, jstar, g, k, pk, pp)
+            dt2 = fts.code_conv_pool_backward(codes, jstar, g, k, pk, pp)
+            ref_dt = fts.code_conv_pool_backward_reference(codes, ref_j, g,
+                                                           k, pk, pp)
+            torch.cuda.synchronize()
+            e2 = (pooled - ref).abs().max().item()
+            same_j = torch.equal(jstar, ref_j)
+            e3 = (dt - ref_dt).abs().max().item()
+            r3 = e3 / ref_dt.abs().max().item()
+            same_dt = torch.equal(dt, dt2)
+            log(f"K2 {name} B={B}: max |kernel - plain| = {e2:.3g}, jstar "
+                f"{'identical' if same_j else 'DIFFERS'}; K3: max |kernel "
+                f"- plain| = {e3:.3g} ({r3:.3g} of max|dtable|), two runs "
+                f"{'bit-identical' if same_dt else 'DIFFER'}")
+            if not (e2 <= TOL_K2 and same_j and r3 <= TOL_K3_REL
+                    and same_dt):
+                raise AssertionError(f"K2/K3 disagree with their plain "
+                                     f"versions on {name}, B={B}")
+            err_k2, err_k3 = max(err_k2, e2), max(err_k3, e3)
+            rel_k3 = max(rel_k3, r3)
+            grads.append(g)
+            jstars.append(jstar)
+        if B == 37:
+            continue
+        timings[B] = time_stem(inputs, tables, grads, jstars, k)
+        log(f"K2/K3 one train step at B={B}: " + json.dumps(timings[B]))
+    return {"max_abs_err_k2": err_k2, "max_abs_err_k3": err_k3,
+            "max_rel_err_k3": rel_k3, "timings": timings,
+            "bound_k2": k2_bound(TRAIN_BATCH, k, C),
+            "bound_k3": k3_bound(TRAIN_BATCH, k, C)}
+
+
+def time_stem(inputs, tables, grads, jstars, k):
+    """Per train step (both towers): K2, K3, their plain versions and the
+    library composition (conv on a prepared one-hot + max pool with
+    indices, and that composition's autograd backward), each as device
+    time (``*_ms``) and as the caller's time per call (``*_call_ms``)."""
+    import torch
+    import torch.nn.functional as F
+    from mural_tpu_torch.ops import fused_train_stem as fts
+    calls = list(zip(STEMS, inputs, tables, grads, jstars))
+
+    def run(fn):
+        return lambda: [fn(*c) for c in calls]
+
+    lib = []
+    for (_, pk, pp), codes, (table, bias), g, _ in calls:
+        w = table.permute(2, 1, 0).contiguous().requires_grad_()
+        b = bias.detach().clone().requires_grad_()
+        oh = one_hot16(codes, k)
+        out, _ = F.max_pool1d(F.conv1d(oh, w, b), pk, pk, pp,
+                              return_indices=True)
+        ref, _ = fts.code_conv_pool_forward(codes, table, bias, pk, pp)
+        e = (out - ref).abs().max().item()
+        if not e <= TOL_KERNEL:
+            raise AssertionError(f"library composition disagrees: {e}")
+        lib.append((oh, w, b, out, g))
+    fns = {
+        "k2": run(lambda s, c, t, g, j: fts.code_conv_pool_forward(
+            c, t[0], t[1], s[1], s[2])),
+        "k2_plain": run(lambda s, c, t, g, j: fts.code_conv_pool_reference(
+            c, t[0], t[1], s[1], s[2])),
+        "k2_library": lambda: [
+            F.max_pool1d(F.conv1d(oh, w, b), s[1], s[1], s[2],
+                         return_indices=True)
+            for (oh, w, b, _, _), s in zip(lib, STEMS)],
+        "k3": run(lambda s, c, t, g, j: fts.code_conv_pool_backward(
+            c, j, g, k, s[1], s[2])),
+        "k3_plain": run(
+            lambda s, c, t, g, j: fts.code_conv_pool_backward_reference(
+                c, j, g, k, s[1], s[2])),
+        "k3_library": lambda: [
+            torch.autograd.grad(out, (w, b), g, retain_graph=True)
+            for (_, w, b, out, g) in lib],
+    }
+    out = {f"{name}_ms": device_ms(fn) for name, fn in fns.items()}
+    out.update({f"{name}_call_ms": cuda_ms(fn) for name, fn in fns.items()})
+    return out
 
 
 def phase_model(model, dev, gen):
     """Fused (through K1) vs unfused forward on the card, and the card's
     unfused forward vs the CPU's."""
-    import copy
-
     import torch
     from mural_tpu_torch.models.layers import one_hot_from_codes
     from mural_tpu_torch.ops.fused_inference import (fold_snv2,
@@ -271,6 +473,112 @@ def phase_model(model, dev, gen):
     return max(e, e_cpu), fwd_ms
 
 
+def train_batches(gen, n, B):
+    """``n`` batches (y, cat, codes) of genome-like codes (ACGT, 0.1% N)."""
+    import torch
+    out = []
+    for _ in range(n):
+        codes = torch.randint(0, 4, (B, 401), generator=gen,
+                              dtype=torch.uint8)
+        codes[torch.rand((B, 401), generator=gen) < 1e-3] = 14
+        out.append((torch.randint(0, 4, (B,), generator=gen),
+                    torch.randint(0, 65, (B, 13), generator=gen), codes))
+    return out
+
+
+def make_state(model, dev, n_steps):
+    from mural_tpu_torch.train.optim import LRSchedule, build_optimizer
+    from mural_tpu_torch.train.steps import TrainState
+    model = copy.deepcopy(model).to(dev)
+    return TrainState(model, build_optimizer("Adam", model.parameters(),
+                                             1e-5),
+                      LRSchedule.build("StepLR", 1e-3, 0.9, TRAIN_BATCH,
+                                       TRAIN_BATCH * n_steps, 1e-4, 1e-6))
+
+
+def run_steps(state, batches, dev, fused):
+    import torch
+    from mural_tpu_torch.train.steps import model_input, train_step
+    losses = []
+    for y, cat, codes in batches:
+        loss, _ = train_step(
+            state, y.to(dev), cat.to(dev),
+            model_input(codes.to(dev), fused),
+            torch.ones(len(y), device=dev))
+        losses.append(loss.item())
+    return losses
+
+
+def phase_train_step(dev, seed):
+    """Fused vs unfused Adam steps on the card, card vs CPU, and the step
+    time with the device's busy share (torch.profiler kernel time)."""
+    import torch
+    from mural_tpu_torch.models.init import init_weights
+    from mural_tpu_torch.models.registry import build_model_from_config
+    from mural_tpu_torch.train.steps import model_input, train_step
+    cfg = dict(CONFIG, emb_dropout=0.0, local_dropout=0.0,
+               distal_fc_dropout=0.0)
+    gen = torch.Generator().manual_seed(seed + 1)
+    model = init_weights(build_model_from_config(cfg, 0, "snv"), gen)
+    batches = train_batches(gen, 5, TRAIN_BATCH)
+    fused = run_steps(make_state(model, dev, 5), batches, dev, True)
+    unfused = run_steps(make_state(model, dev, 5), batches, dev, False)
+    rel = [abs(a - b) / abs(b) for a, b in zip(fused, unfused)]
+    log(f"train steps, fused vs unfused (5 Adam steps of "
+        f"{TRAIN_BATCH}): losses {fused} vs {unfused}, max rel diff "
+        f"{max(rel):.3g}")
+    if not (max(rel) <= TOL_STEP and np.isfinite(fused).all()):
+        raise AssertionError(f"fused and unfused train steps disagree: "
+                             f"{rel}")
+    small = [(y[:16], cat[:16], codes[:16]) for y, cat, codes in batches[:2]]
+    card = run_steps(make_state(model, dev, 2), small, dev, False)
+    cpu = run_steps(make_state(model, torch.device("cpu"), 2), small,
+                    torch.device("cpu"), False)
+    rel_cpu = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    log(f"train steps, card vs CPU (2 unfused steps of 16): max rel diff "
+        f"{rel_cpu:.3g}")
+    if not rel_cpu <= TOL_STEP:
+        raise AssertionError(f"card and CPU train steps disagree: {rel_cpu}")
+
+    timing = {}
+    for name, is_fused in (("fused", True), ("unfused", False)):
+        state = make_state(model, dev, 40)
+        batch = [(y.to(dev), cat.to(dev), model_input(codes.to(dev),
+                                                      is_fused))
+                 for y, cat, codes in batches]
+        mask = torch.ones(TRAIN_BATCH, device=dev)
+
+        def steps(n):
+            for i in range(n):
+                y, cat, distal = batch[i % len(batch)]
+                train_step(state, y, cat, distal, mask)
+            torch.cuda.synchronize()
+
+        steps(5)
+        t0 = time.perf_counter()
+        steps(20)
+        wall_ms = (time.perf_counter() - t0) / 20 * 1e3
+        busy_ms = device_busy_ms(lambda: steps(10)) / 10
+        timing[name] = {"step_ms": wall_ms, "device_busy_ms": busy_ms,
+                        "device_busy_share": (busy_ms / wall_ms
+                                              if busy_ms else None)}
+    log("train step at B=128 (host clock, device busy from "
+        "torch.profiler): " + json.dumps(timing))
+    return max(rel), rel_cpu, timing
+
+
+def device_busy_ms(fn) -> float:
+    """Summed duration of the device events (kernels and copies) that
+    torch.profiler records while ``fn`` runs; 0 when it records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
 def read_tsv(path):
     with gzip.open(path, "rt") as fh:
         header = fh.readline().rstrip("\n").split("\t")
@@ -280,11 +588,28 @@ def read_tsv(path):
     return header, keys, probs
 
 
-def phase_predict(work, fasta, bed, model_path, n_sites, cuda_id):
-    """The main path, through the CLI, fused and unfused."""
+TSV_HEADER = ["chrom", "start", "end", "strand", "mut_type", "prob0",
+              "prob1", "prob2", "prob3"]
+
+
+def cli_predict(cli, common, out, extra=()):
+    """One predict through the CLI; returns its run record with the K1
+    launches counted from 0 just before it."""
     import torch
-    from mural_tpu_torch.cli.mural_snv import main as cli
     from mural_tpu_torch.ops import fused_code_conv as fcc
+    fcc.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = cli(["predict", *common, "--pred_file", out, *extra])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"rc": rc, "seconds": seconds, "launches": fcc.LAUNCHES,
+            "tsv": read_tsv(out)}
+
+
+def phase_predict(work, fasta, bed, model_path, n_sites, cuda_id):
+    """The predict path, through the CLI, fused and unfused."""
+    from mural_tpu_torch.cli.mural_snv import main as cli
     common = ["--ref_genome", fasta, "--test_data", bed,
               "--model_path", model_path,
               "--model_config_path", model_path + ".config.pkl",
@@ -293,27 +618,21 @@ def phase_predict(work, fasta, bed, model_path, n_sites, cuda_id):
               "--pred_time_view"]
     runs = {}
     for name, extra in (("fused", ["--fused_inference"]), ("unfused", [])):
-        out = str(work / f"pred_{name}.tsv.gz")
-        fcc.LAUNCHES = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rc = cli(["predict", *common, "--pred_file", out, *extra])
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        runs[name] = {"rc": rc, "seconds": seconds,
-                      "sites_per_s": n_sites / seconds,
-                      "launches": fcc.LAUNCHES, "tsv": read_tsv(out)}
-        log(f"predict {name}: {seconds:.3f} s, "
-            f"{n_sites / seconds:.1f} sites/s, K1 launches {fcc.LAUNCHES}")
+        runs[name] = run = cli_predict(cli, common,
+                                       str(work / f"pred_{name}.tsv.gz"),
+                                       extra)
+        run["sites_per_s"] = n_sites / run["seconds"]
+        log(f"predict {name}: {run['seconds']:.3f} s, "
+            f"{run['sites_per_s']:.1f} sites/s, K1 launches "
+            f"{run['launches']}")
 
     n_batches = math.ceil(n_sites / BATCH)
     fused, unfused = runs["fused"], runs["unfused"]
     header, keys, probs = fused["tsv"]
-    want = ["chrom", "start", "end", "strand", "mut_type",
-            "prob0", "prob1", "prob2", "prob3"]
-    checks = {
+    check_all("predict", {
         "exit codes 0": fused["rc"] == 0 and unfused["rc"] == 0,
-        "TSV schema": header == want and unfused["tsv"][0] == want,
+        "TSV schema": header == TSV_HEADER
+        and unfused["tsv"][0] == TSV_HEADER,
         f"{n_sites} rows": len(keys) == n_sites,
         "probabilities finite and summing to 1": bool(
             np.isfinite(probs).all()
@@ -327,19 +646,149 @@ def phase_predict(work, fasta, bed, model_path, n_sites, cuda_id):
             np.abs(probs - unfused["tsv"][2])
             <= 1.1e-3 * np.maximum(np.abs(probs),
                                    np.abs(unfused["tsv"][2])))),
-    }
-    for what, ok in checks.items():
-        log(f"check {what}: {'ok' if ok else 'FAILED'}")
-    failed = [what for what, ok in checks.items() if not ok]
-    if failed:
-        raise AssertionError(f"predict checks failed: {failed}")
+    })
     return fused, unfused
+
+
+def check_all(what, checks):
+    for name, ok in checks.items():
+        log(f"check {what}: {name}: {'ok' if ok else 'FAILED'}")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{what} checks failed: {failed}")
+
+
+_EPOCH_LINE = re.compile(
+    r"Epoch (\d+) used time: ([\d.]+)s \(train (\d+) steps in ([\d.]+)s, "
+    r"valid (\d+) batches in ([\d.]+)s")
+
+
+def cli_train(cli, work, fasta, bed, name, cuda_id, extra):
+    """One ``train`` run through the CLI from ``work``; returns its trial
+    directory, the per-epoch records of its log and the K2/K3 launches
+    counted from 0 just before it."""
+    import torch
+    from mural_tpu_torch.ops import fused_train_stem as fts
+    argv = ["train", "--ref_genome", fasta, "--train_data", bed,
+            "--experiment_name", name, "--n_trials", "1", "--batch_size",
+            str(TRAIN_BATCH), "--valid_ratio", "0.2", "--split_seed", "0",
+            "--cuda_id", str(cuda_id), *extra]
+    fts.FWD_LAUNCHES = fts.BWD_LAUNCHES = 0
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    launches = (fts.FWD_LAUNCHES, fts.BWD_LAUNCHES)
+    exp = work / "results" / name
+    trials = sorted(d for d in os.listdir(exp) if d.startswith("Train_"))
+    trial = exp / trials[0]
+    epochs = [dict(zip(("epoch", "epoch_s", "train_steps", "train_s",
+                        "valid_batches", "valid_s"),
+                       (int(m[0]), float(m[1]), int(m[2]), float(m[3]),
+                        int(m[4]), float(m[5]))))
+              for m in _EPOCH_LINE.findall(
+                  (trial / "training.log").read_text())]
+    for e in epochs:
+        e["train_windows_per_s"] = e["train_steps"] * TRAIN_BATCH \
+            / e["train_s"]
+    return {"rc": rc, "seconds": seconds, "trial": trial, "epochs": epochs,
+            "k2": launches[0], "k3": launches[1], "n_trials": len(trials)}
+
+
+def phase_train_cli(work, fasta, bed, n_train, cuda_id):
+    """The training path through the CLI: train with the fused stem,
+    get_best_model, predict on the best triple; then unfused for one
+    epoch."""
+    from mural_tpu_torch.cli.mural_snv import main as cli
+    run = cli_train(cli, work, fasta, bed, "fused", cuda_id,
+                    ["--fused_stem", "on", "--epochs", "2"])
+    trial, epochs = run["trial"], run["epochs"]
+    steps = sum(e["train_steps"] for e in epochs)
+    vbatches = sum(e["valid_batches"] for e in epochs)
+    metrics = []
+    for epoch in (0, 1):
+        path = trial / f"checkpoint_{epoch}" / f"epoch_{epoch}_metrics.txt"
+        metrics.append(dict(line.split(": ", 1) for line in
+                            path.read_text().splitlines()) if path.exists()
+                       else {})
+    progress = trial / "progress.csv"
+    check_all("train --fused_stem on", {
+        "exit code 0": run["rc"] == 0,
+        "one trial": run["n_trials"] == 1,
+        "two epochs logged": len(epochs) == 2,
+        "checkpoint_0 and checkpoint_1 hold the triple": all(
+            (trial / f"checkpoint_{e}" / f).exists() for e in (0, 1)
+            for f in ("model", "model.config.pkl", "model.fdiri_cal.pkl")),
+        "finite loss and fdiri_loss": all(
+            np.isfinite(float(m.get(k, "nan"))) for m in metrics
+            for k in ("loss", "fdiri_loss")),
+        "progress.csv has two epochs": progress.exists()
+        and len(progress.read_text().splitlines()) == 3,
+        f"K2 launched 2 x ({steps} train steps + {vbatches} validation "
+        f"batches)": run["k2"] == 2 * (steps + vbatches),
+        f"K3 launched 2 x {steps} train steps": run["k3"] == 2 * steps,
+    })
+    log(f"train --fused_stem on: {run['seconds']:.3f} s; epochs "
+        + json.dumps(epochs))
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc_best = cli(["get_best_model", "--trial_path",
+                       str(work / "results" / "fused")])
+    log(out.getvalue().rstrip())
+    # the first line echoes the command; the best trial's line follows,
+    # its path relative to the directory train ran in
+    best = os.path.normpath(os.path.join(
+        work, out.getvalue().splitlines()[1].split("\t")[0]))
+    model_path = os.path.join(best, "model")
+    pred = cli_predict(cli, [
+        "--ref_genome", fasta, "--test_data", bed,
+        "--model_path", model_path,
+        "--model_config_path", model_path + ".config.pkl",
+        "--calibrator_path", model_path + ".fdiri_cal.pkl",
+        "--pred_batch_size", str(BATCH), "--cuda_id", str(cuda_id)],
+        str(work / "pred_trained.tsv.gz"), ["--fused_inference"])
+    header, keys, probs = pred["tsv"]
+    n_batches = math.ceil(n_train / BATCH)
+    check_all("get_best_model -> predict --fused_inference", {
+        "exit codes 0": rc_best == 0 and pred["rc"] == 0,
+        "best checkpoint is one of the trial's":
+            os.path.dirname(best) == str(trial),
+        "TSV schema": header == TSV_HEADER,
+        f"{n_train} rows": len(keys) == n_train,
+        "probabilities finite and summing to 1": bool(
+            np.isfinite(probs).all()
+            and np.abs(probs.sum(1) - 1).max() <= 1e-3),
+        f"K1 launched 2 x {n_batches} batches":
+            pred["launches"] == 2 * n_batches,
+    })
+
+    off = cli_train(cli, work, fasta, bed, "unfused", cuda_id,
+                    ["--fused_stem", "off", "--epochs", "1"])
+    check_all("train --fused_stem off", {
+        "exit code 0": off["rc"] == 0,
+        "one epoch logged": len(off["epochs"]) == 1,
+        "checkpoint_0 holds the triple": all(
+            (off["trial"] / "checkpoint_0" / f).exists()
+            for f in ("model", "model.config.pkl", "model.fdiri_cal.pkl")),
+        "no K2/K3 launch": off["k2"] == 0 and off["k3"] == 0,
+    })
+    log(f"train --fused_stem off: {off['seconds']:.3f} s; epochs "
+        + json.dumps(off["epochs"]))
+    return run, off
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n_sites", type=int, default=200_000)
+    ap.add_argument("--n_train", type=int, default=60_000)
     args = ap.parse_args(argv)
 
     import torch
@@ -348,6 +797,7 @@ def main(argv=None) -> int:
         return 2
     try:
         from mural_tpu_torch.ops import fused_code_conv as fcc
+        from mural_tpu_torch.ops import fused_train_stem as fts
     except ImportError as e:
         print(f"chip_smoke: the mural_tpu_torch package is missing ({e}); "
               "run from the root of the repository", file=sys.stderr)
@@ -362,54 +812,95 @@ def main(argv=None) -> int:
     log(f"card (name, power limit): {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
-    t0 = time.perf_counter()
-    fcc.load_library()
-    t_build = time.perf_counter() - t0
-    log(f"K1 built and loaded in {t_build:.2f} s; nvcc said:\n"
-        f"{fcc.BUILD_LOG.strip()}")
+    t_build, build_logs = build_kernels()
+    log(f"kernels built and loaded in {t_build:.2f} s (in parallel)")
+    for name, text in build_logs.items():
+        log(f"nvcc on {name}.cu said:\n{text}")
     work = Path(__file__).resolve().parent / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator().manual_seed(args.seed)
     t0 = time.perf_counter()
-    fasta, bed = write_inputs(work, rng, args.n_sites)
+    fasta, bed, train_bed = write_inputs(work, rng, args.n_sites,
+                                         args.n_train)
     model_path, model = write_checkpoint(work, args.seed)
     log(f"synthetic inputs and checkpoint in {time.perf_counter() - t0:.2f}"
-        f" s ({args.n_sites} sites)")
+        f" s ({args.n_sites} sites to predict, {args.n_train} to train)")
+    phase_s = {}
 
-    # 2. kernel vs plain
-    k1 = phase_kernel(model.to(dev).eval(), dev, gen)
-    # 3. model on the card
-    model_err, fwd_ms = phase_model(model, dev, gen)
-    # 4. main path
-    fused, unfused = phase_predict(work, fasta, bed, model_path,
-                                   args.n_sites, dev.index or 0)
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t
+        return out
+
+    # 2-3. kernels vs plain
+    k1 = timed("k1", phase_k1, model.to(dev).eval(), dev, gen)
+    k23 = timed("k2_k3", phase_k2_k3, model, dev, gen)
+    # 4-5. model and train step on the card
+    model_err, fwd_ms = timed("model", phase_model, model, dev, gen)
+    step_rel, step_rel_cpu, step_timing = timed(
+        "train_step", phase_train_step, dev, args.seed)
+    # 6. the predict path (K1 counted from 0 around each run)
+    fused, unfused = timed("predict", phase_predict, work, fasta, bed,
+                           model_path, args.n_sites, dev.index or 0)
+    # 7. the training path (K2/K3 counted from 0 around each run)
+    train_on, train_off = timed("train_cli", phase_train_cli, work, fasta,
+                                train_bed, args.n_train, dev.index or 0)
     shutil.rmtree(work, ignore_errors=True)
 
-    # 5. results
-    kernel = {
+    # 8. results
+    per_step = (f"one train step: B={TRAIN_BATCH} at L=401 (pool 15) and "
+                f"the L=201 crop (pool 3)")
+    t128 = k23["timings"][TRAIN_BATCH]
+    kernels = [{
         "name": "code_conv1d", "route": "cuda",
         "source": "mural_tpu_torch/ops/csrc/code_conv1d.cu",
         "replaces": "mural_tpu/ops/fused_code_conv.py:115",
         "launches": fused["launches"],
-        "max_abs_err": k1["max_abs_err"],
-        "max_abs_diff": k1["max_abs_err"],
-        "ms": k1["ms"], "kernel_ms": k1["ms"],
+        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
+        "call_ms": k1["call_ms"], "plain_call_ms": k1["plain_call_ms"],
+        "library_call_ms": k1["library_call_ms"],
         "per": f"one predict batch: B={BATCH} at L=401 and the L=201 crop",
-        "per_shape": k1["per_shape"],
-    }
-    log(json.dumps({"kernels": [kernel]}))
+    }, {
+        "name": "code_conv_pool_fwd", "route": "cuda",
+        "source": "mural_tpu_torch/ops/csrc/code_conv_pool.cu",
+        "replaces": "mural_tpu/ops/fused_train_stem.py:339",
+        "launches": train_on["k2"],
+        "max_abs_err": k23["max_abs_err_k2"], "ms": t128["k2_ms"],
+        "plain_ms": t128["k2_plain_ms"], "bound_ms": k23["bound_k2"][0],
+        "bound_by": k23["bound_k2"][1], "library_ms": t128["k2_library_ms"],
+        "call_ms": t128["k2_call_ms"], "per": per_step,
+        "at_b128": t128, "at_b2048": k23["timings"][2048],
+    }, {
+        "name": "code_conv_pool_bwd", "route": "cuda",
+        "source": "mural_tpu_torch/ops/csrc/code_conv_pool.cu",
+        "replaces": "mural_tpu/ops/fused_train_stem.py:375",
+        "launches": train_on["k3"],
+        "max_abs_err": k23["max_abs_err_k3"],
+        "max_rel_err": k23["max_rel_err_k3"], "ms": t128["k3_ms"],
+        "plain_ms": t128["k3_plain_ms"], "bound_ms": k23["bound_k3"][0],
+        "bound_by": k23["bound_k3"][1], "library_ms": t128["k3_library_ms"],
+        "call_ms": t128["k3_call_ms"], "per": per_step,
+    }]
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({
         "card": card, "build_s": t_build,
         "model_max_abs_err": model_err, **fwd_ms,
+        "train_step_rel_diff_fused_unfused": step_rel,
+        "train_step_rel_diff_card_cpu": step_rel_cpu,
+        "train_step_b128": step_timing,
         "predict_fused_s": fused["seconds"],
         "predict_fused_sites_per_s": fused["sites_per_s"],
         "predict_unfused_s": unfused["seconds"],
         "predict_unfused_sites_per_s": unfused["sites_per_s"],
-        "n_sites": args.n_sites, "batch": BATCH,
+        "train_fused_epochs": train_on["epochs"],
+        "train_unfused_epochs": train_off["epochs"],
+        "n_sites": args.n_sites, "n_train": args.n_train, "batch": BATCH,
+        "train_batch": TRAIN_BATCH, "phase_s": phase_s,
         "total_s": time.perf_counter() - t_start}))
     log(card)
     print(json.dumps({"ok": True, "device": {

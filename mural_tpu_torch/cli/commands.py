@@ -1,13 +1,231 @@
-"""argparse builder of the ported sub-command (counterpart of
-``mural_tpu/cli/commands.py:306-366``): ``predict``, with the reference's
-flags and defaults.  ``--cpu_only`` and ``--cuda_id`` have their
-reference meaning: the run goes to CUDA device ``--cuda_id`` (default
-the current one) unless ``--cpu_only`` is given.
+"""argparse builders of the ported sub-commands (counterpart of
+``mural_tpu/cli/commands.py``): ``train``, ``predict`` and
+``get_best_model``, with the JAX package's flags and defaults.
+``--cpu_only`` and ``--cuda_id`` have their reference meaning: the run
+goes to CUDA device ``--cuda_id`` (default the current one) unless
+``--cpu_only`` is given.  Flags of options this port does not run yet
+are accepted and raise ``NotImplementedError`` naming their ROADMAP.md
+item when set (``mural_tpu_torch.train.loop.check_ported``,
+``mural_tpu_torch.cli.main.cmd_train``).
 """
 
 from __future__ import annotations
 
 import argparse
+
+
+def _device_args(g):
+    g.add_argument("--cpu_only", default=False, action="store_true",
+                   help="Run on the CPU instead of the CUDA device.")
+    g.add_argument("--cuda_id", type=str, metavar="STR", default=None,
+                   help="CUDA device index. Default: the current device.")
+
+
+def _learning_args(p, lr_default):
+    g = p.add_argument_group("Learning-related arguments")
+    g.add_argument("--segment_center", type=int, metavar="INT",
+                   default=300000,
+                   help="The maximum encoding unit (segment) length of "
+                        "the genome. Default: 300000.")
+    g.add_argument("--sampled_segments", type=int, metavar="INT",
+                   default=[10], nargs="+",
+                   help="Number of segments chosen for generating "
+                        "batches. Default: 10.")
+    g.add_argument("--batch_size", type=int, metavar="INT", default=[128],
+                   nargs="+", help="Size of mini batches. Default: 128.")
+    g.add_argument("--custom_dataloader", default=False,
+                   action="store_true", help=argparse.SUPPRESS)
+    g.add_argument("--optim", type=str, metavar="STR", default=["Adam"],
+                   nargs="+",
+                   help="Optimization method: 'Adam', 'AdamW', 'AdamW2' "
+                        "or 'SGD'. Default: 'Adam'.")
+    g.add_argument("--learning_rate", type=float, metavar="FLOAT",
+                   default=lr_default, nargs="+",
+                   help="Learning rate. Default: %(default)s.")
+    g.add_argument("--lr_scheduler", type=str, metavar="STR",
+                   default=["StepLR"], nargs="+",
+                   help="Learning rate scheduler: 'StepLR', 'StepLR2' or "
+                        "'ROP'. Default: 'StepLR'.")
+    g.add_argument("--weight_decay_auto", type=float, metavar="FLOAT",
+                   default=0.1,
+                   help="Calculate weight_decay automatically: "
+                        "1 - x**(batch_size/(epochs*train_size)). "
+                        "Set <=0 to disable. Default: 0.1.")
+    g.add_argument("--weight_decay", type=float, metavar="FLOAT",
+                   default=[1e-5], nargs="+",
+                   help="L2 regularization (used when weight_decay_auto "
+                        "is off). Default: 1e-5.")
+    g.add_argument("--restart_lr", type=float, metavar="FLOAT",
+                   default=1e-4,
+                   help="LR after a scheduler restart. Default: 1e-4.")
+    g.add_argument("--min_lr", type=float, metavar="FLOAT", default=1e-6,
+                   help="Minimum learning rate. Default: 1e-6.")
+    g.add_argument("--LR_gamma", type=float, metavar="FLOAT",
+                   default=[0.9], nargs="+",
+                   help="Gamma of the LR scheduler. Default: 0.9.")
+    g.add_argument("--cudnn_benchmark_false", default=False,
+                   action="store_true", help=argparse.SUPPRESS)
+    g.add_argument("--bf16", default=False, action="store_true",
+                   help="bfloat16 activations (not ported yet).")
+    g.add_argument("--steps_per_dispatch", type=int, metavar="INT",
+                   default=None,
+                   help="Train steps per device call; only 1 is ported. "
+                        "Default: 1.")
+    g.add_argument("--resident_data", type=str, metavar="MODE",
+                   default="auto", choices=["auto", "on", "off"],
+                   help="Device-resident training data ('on' is not "
+                        "ported yet; 'auto' feeds batches from the host). "
+                        "Default: auto.")
+    g.add_argument("--fused_stem", type=str, metavar="MODE",
+                   default="auto", choices=["auto", "on", "off"],
+                   help="Run each distal tower's one-hot+BN+conv+maxpool "
+                        "stem as the fused CUDA kernels K2 (forward) and "
+                        "K3 (backward) during training (histogram-exact "
+                        "BatchNorm statistics, identical parameter "
+                        "gradients). 'auto' resolves to off, as in the "
+                        "JAX package; 'on' opts in. Default: auto.")
+    return g
+
+
+def _scheduler_args(p, default_experiment):
+    g = p.add_argument_group("Trial-scheduler arguments")
+    g.add_argument("--use_ray", default=False, action="store_true",
+                   help="ASHA trial scheduler (not ported yet).")
+    g.add_argument("--experiment_name", type=str, metavar="STR",
+                   default=default_experiment,
+                   help="Experiment name. Default: %(default)s.")
+    g.add_argument("--n_trials", type=int, metavar="INT", default=2,
+                   help="Number of trials. Default: 2.")
+    g.add_argument("--epochs", type=int, metavar="INT", default=10,
+                   help="Max training epochs per trial. Default: 10.")
+    g.add_argument("--grace_period", type=int, metavar="INT", default=5,
+                   help="Min epochs before early stopping. Default: 5.")
+    g.add_argument("--ASHA_metric", type=str, metavar="STR",
+                   default="loss", help=argparse.SUPPRESS)
+    for flag, kind, default in (("--ray_ncpus", int, 2),
+                                ("--ray_ngpus", int, 1),
+                                ("--cpu_per_trial", int, 2),
+                                ("--gpu_per_trial", float, 0.15)):
+        g.add_argument(flag, type=kind, default=default,
+                       help=argparse.SUPPRESS)
+    _device_args(g)
+    g.add_argument("--n_parallel", type=int, metavar="INT", default=1,
+                   help="Concurrent trials (only 1 is ported). "
+                        "Default: 1.")
+    g.add_argument("--trial_executor", type=str, metavar="MODE",
+                   default="thread", choices=["thread", "process"],
+                   help="Concurrent-trial executor ('process' is not "
+                        "ported yet). Default: thread.")
+    g.add_argument("--trial_ensemble", type=str, metavar="MODE",
+                   default="off", choices=["off", "auto"],
+                   help="Vmapped trial ensembles ('auto' is not ported "
+                        "yet). Default: off.")
+    g.add_argument("--dp_devices", type=int, metavar="INT", default=1,
+                   help="Data-parallel devices (only 1 is ported). "
+                        "Default: 1.")
+    g.add_argument("--profile_dir", type=str, metavar="DIR", default=None,
+                   help="Profiler trace directory (not ported yet).")
+    g.add_argument("--rerun_failed", default=False, action="store_true",
+                   help="Re-run errored trials (not ported yet).")
+    return g
+
+
+def _data_args(p):
+    g = p.add_argument_group("Data-related arguments")
+    g.add_argument("--validation_data", type=str, metavar="FILE",
+                   default=None,
+                   help="Validation BED file; without it, "
+                        "--valid_ratio of training data is used.")
+    g.add_argument("--sample_weights", type=str, metavar="FILE",
+                   default=None, help=argparse.SUPPRESS)
+    g.add_argument("--valid_ratio", type=float, metavar="FLOAT",
+                   default=0.1,
+                   help="Fraction of segments used for validation. "
+                        "Default: 0.1.")
+    g.add_argument("--split_seed", type=int, metavar="INT", default=-1,
+                   help="Seed for the train/validation split; -1 draws "
+                        "a random seed. Default: -1.")
+    g.add_argument("--bw_paths", type=str, metavar="FILE", default=None,
+                   help="List file of coverage tracks (not ported yet).")
+    g.add_argument("--without_bw_distal", default=False,
+                   action="store_true",
+                   help="Do not use track data for distal regions.")
+    g.add_argument("--seq_only", default=False, action="store_true",
+                   help="Use only genomic sequence, ignore tracks.")
+    g.add_argument("--with_h5", default=False, action="store_true",
+                   help="Use the on-disk site-table cache (not ported "
+                        "yet).")
+    g.add_argument("--h5f_path", type=str, metavar="FILE", default=None,
+                   help=argparse.SUPPRESS)
+    g.add_argument("--n_h5_files", type=int, metavar="INT", default=1,
+                   help=argparse.SUPPRESS)
+    g.add_argument("--save_valid_preds", default=False,
+                   action="store_true",
+                   help="Save validation predictions per checkpoint (not "
+                        "ported yet).")
+    return g
+
+
+def add_train_parser(subparsers, model_type: str):
+    p = subparsers.add_parser(
+        "train", help="Train models with the provided data",
+        formatter_class=argparse.RawTextHelpFormatter)
+    req = p.add_argument_group("Required arguments")
+    req.add_argument("--ref_genome", type=str, metavar="FILE", default="",
+                     required=True, help="Reference genome FASTA.")
+    req.add_argument("--train_data", type=str, metavar="FILE", default="",
+                     required=True, help="Sorted training BED file.")
+    _data_args(p)
+    m = p.add_argument_group("Model-related arguments")
+    m.add_argument("--distal_order", type=int, metavar="INT", default=1,
+                   help="Order of distal sequence encoding. Default: 1.")
+    m.add_argument("--CNN_kernel_size", type=int, metavar="INT",
+                   default=[3], nargs="+",
+                   help="Kernel size of the first convolution.")
+    m.add_argument("--CNN_out_channels", type=int, metavar="INT",
+                   default=[32], nargs="+",
+                   help="Output channels of the first convolution.")
+    m.add_argument("--model_no", type=int, metavar="INT", default=2,
+                   help="Model architecture: 0 local-only, 1 "
+                        "expanded-only, 2 combined (only 2 is ported). "
+                        "Default: 2.")
+    m.add_argument("--n_class", type=int, metavar="INT", default=4,
+                   help="Number of mutation classes. Default: 4.")
+    for flag, kind, default, text in (
+            ("--distal_radius", int, 200,
+             "Radius of the expanded (distal) region."),
+            ("--local_radius", int, 7, "Radius of the local region."),
+            ("--local_order", int, 3, "K-mer order for local sequences."),
+            ("--local_hidden1_size", int, 150,
+             "First FC layer size of the local branch."),
+            ("--local_hidden2_size", int, 0,
+             "Second FC layer size (0 -> hidden1 // 2)."),
+            ("--emb_dropout", float, 0.1, "Dropout of the embedding layer."),
+            ("--local_dropout", float, 0.1, "Dropout of local FC layers."),
+            ("--distal_fc_dropout", float, 0.25,
+             "Dropout of the distal FC layer.")):
+        m.add_argument(flag, type=kind,
+                       metavar="INT" if kind is int else "FLOAT",
+                       default=[default], nargs="+", help=text)
+    c = p.add_argument_group("Calibration-related arguments")
+    c.add_argument("--poisson_calib", default=False, action="store_true",
+                   help="Poisson-based probability calibration of the "
+                        "validation evaluation (not ported yet).")
+    _learning_args(p, [0.001])
+    _scheduler_args(p, f"{model_type}_experiment")
+    p.set_defaults(func="train")
+    return p
+
+
+def add_get_best_model_parser(subparsers, model_type: str):
+    p = subparsers.add_parser(
+        "get_best_model", help="Pick the best checkpoints of an "
+        "experiment", formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--trial_path", required=True, type=str,
+                   metavar="FILE", help="Experiment directory containing "
+                   "Train_* trial folders.")
+    p.set_defaults(func="get_best_model")
+    return p
 
 
 def add_predict_parser(subparsers, model_type: str):
@@ -45,11 +263,7 @@ def add_predict_parser(subparsers, model_type: str):
                           "yet).")
     opt.add_argument("--h5f_path", type=str, metavar="FILE",
                      default=None, help=argparse.SUPPRESS)
-    opt.add_argument("--cpu_only", default=False, action="store_true",
-                     help="Run on the CPU instead of the CUDA device.")
-    opt.add_argument("--cuda_id", type=str, metavar="STR", default=None,
-                     help="CUDA device index. Default: the current "
-                          "device.")
+    _device_args(opt)
     opt.add_argument("--segment_center", type=int, metavar="INT",
                      default=None,
                      help="Override the segment length of the checkpoint "

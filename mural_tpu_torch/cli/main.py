@@ -1,6 +1,7 @@
 """CLI dispatch for mural_snv (counterpart of ``mural_tpu/cli/main.py``).
 
-Only ``predict`` is ported; the reference's other sub-commands raise
+``train`` (standalone trials, one after another), ``predict`` and
+``get_best_model`` are ported; the reference's other sub-commands raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
@@ -13,7 +14,7 @@ import sys
 from mural_tpu_torch.cli import commands as C
 
 _NOT_PORTED = {
-    "train": 2, "get_best_model": 2, "evaluate": 3, "scale": 4,
+    "evaluate": 3, "scale": 4,
     "calc_scaling_factor": 4, "transfer": 7, "convert": 7,
     "predict_genome": 9,
 }
@@ -28,12 +29,110 @@ def create_parser(model_type: str) -> argparse.ArgumentParser:
                     "mutation rate estimation on PyTorch/CUDA",
         formatter_class=argparse.RawTextHelpFormatter)
     sub = parser.add_subparsers(dest="command")
+    C.add_train_parser(sub, model_type)
     C.add_predict_parser(sub, model_type)
+    C.add_get_best_model_parser(sub, model_type)
     return parser
 
 
 def _abspath(p):
     return os.path.abspath(p) if p else p
+
+
+def _build_config(args) -> dict:
+    """The standalone trial config: the first value of each list flag
+    (``mural_tpu/cli/main.py:45-92``)."""
+    h2 = args.local_hidden2_size[0]
+    return {
+        "segment_center": args.segment_center,
+        "distal_radius": args.distal_radius[0],
+        "CNN_kernel_size": args.CNN_kernel_size[0],
+        "CNN_out_channels": args.CNN_out_channels[0],
+        "batch_size": args.batch_size[0],
+        "sampled_segments": args.sampled_segments[0],
+        "learning_rate": args.learning_rate[0],
+        "optim": args.optim[0],
+        "lr_scheduler": args.lr_scheduler[0],
+        "LR_gamma": args.LR_gamma[0],
+        "weight_decay": args.weight_decay[0],
+        "weight_decay_auto": args.weight_decay_auto,
+        "restart_lr": args.restart_lr,
+        "min_lr": args.min_lr,
+        "transfer_learning": False,
+        "local_radius": args.local_radius[0],
+        "local_order": args.local_order[0],
+        "local_hidden1_size": args.local_hidden1_size[0],
+        "local_hidden2_size": (h2 if h2 > 0
+                               else args.local_hidden1_size[0] // 2),
+        "emb_dropout": args.emb_dropout[0],
+        "distal_fc_dropout": args.distal_fc_dropout[0],
+        "local_dropout": args.local_dropout[0],
+    }
+
+
+def cmd_train(args, model_type: str) -> int:
+    from mural_tpu_torch.device import resolve_device
+    from mural_tpu_torch.train.loop import TrainOptions, check_ported
+    from mural_tpu_torch.tune.runner import ExperimentOptions, run_experiment
+    for value, flag in ((args.use_ray, "--use_ray"),
+                        (args.n_parallel > 1, "--n_parallel > 1"),
+                        (args.trial_ensemble == "auto",
+                         "--trial_ensemble auto"),
+                        (args.trial_executor == "process",
+                         "--trial_executor process"),
+                        (args.rerun_failed, "--rerun_failed")):
+        if value:
+            raise NotImplementedError(
+                f"train {flag} is not ported yet (ROADMAP.md item 8)")
+    if args.sample_weights:
+        print("Warning: sample_weights be dropped, the program will "
+              "run with sample_weights=None!")
+    opts = TrainOptions(
+        train_data=_abspath(args.train_data),
+        ref_genome=_abspath(args.ref_genome),
+        validation_data=_abspath(args.validation_data),
+        bw_paths=_abspath(args.bw_paths),
+        distal_order=args.distal_order,
+        seq_only=args.seq_only,
+        without_bw_distal=args.without_bw_distal,
+        n_class=args.n_class,
+        model_no=args.model_no,
+        epochs=args.epochs,
+        valid_ratio=args.valid_ratio,
+        split_seed=(args.split_seed if args.split_seed >= 0 else None),
+        save_valid_preds=args.save_valid_preds,
+        poisson_calib=args.poisson_calib,
+        with_h5=args.with_h5,
+        grace_period=args.grace_period,
+        dp_devices=args.dp_devices,
+        profile_dir=args.profile_dir,
+        bf16=args.bf16,
+        steps_per_dispatch=args.steps_per_dispatch,
+        resident=args.resident_data,
+        fused_stem=args.fused_stem,
+    )
+    # fail before any trial starts: a trial's own error goes to its
+    # error.txt and the run carries on
+    check_ported(opts, model_type)
+    opts.device = resolve_device(args.cpu_only, args.cuda_id)
+    exp = ExperimentOptions(experiment_name=args.experiment_name,
+                            n_trials=args.n_trials, epochs=args.epochs,
+                            grace_period=args.grace_period)
+    run_experiment(_build_config(args), opts, model_type, exp)
+    return 0
+
+
+def cmd_get_best_model(args, model_type: str) -> int:
+    """One tab-separated line per trial, ``<checkpoint_dir>\t<loss:.6f>``,
+    sorted by loss (``mural_tpu/cli/main.py:405-424``)."""
+    from mural_tpu_torch.utils.trials import scan_experiment_best
+    best = scan_experiment_best(args.trial_path)
+    if not best:
+        print("No finished trials found under", args.trial_path)
+        return 1
+    for path, loss in best:
+        print(f"{os.path.dirname(path)}\t{loss:.6f}")
+    return 0
 
 
 def cmd_predict(args, model_type: str) -> int:
@@ -77,4 +176,8 @@ def main(model_type: str, argv=None) -> int:
         parser.print_help()
         return 1
     print(" ".join([f"mural_{model_type}"] + argv))
-    return cmd_predict(args, model_type)
+    return _DISPATCH[args.func](args, model_type)
+
+
+_DISPATCH = {"train": cmd_train, "predict": cmd_predict,
+             "get_best_model": cmd_get_best_model}

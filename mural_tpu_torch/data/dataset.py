@@ -8,6 +8,7 @@ gather uint8 code windows on demand (:meth:`SiteDataset.gather_distal`).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, List
 
@@ -52,6 +53,12 @@ class SiteDataset:
         return 0
 
     @property
+    def cat_dims(self) -> List[int]:
+        """Max id + 1 per categorical column."""
+        return [int(self.cat[:, j].max()) + 1
+                for j in range(self.cat.shape[1])]
+
+    @property
     def distal_width(self) -> int:
         return enc.window_size(self.distal_radius, 1, self.model_type)
 
@@ -72,6 +79,29 @@ class SiteDataset:
             out[m] = enc.gather_windows(self.chrom_codes[cid], starts[m],
                                         width, neg[m])
         return out
+
+    def local_frame(self) -> Dict[str, np.ndarray]:
+        """Order-1 local columns plus ``mut_type``, as numpy columns (the
+        JAX package's pandas frame, ``mural_tpu/data/dataset.py:135``)."""
+        cols = enc.local_headers(self.local_radius, 1, self.model_type)
+        frame = {name: self.local1[:, i] for i, name in enumerate(cols)}
+        frame["mut_type"] = self.y
+        return frame
+
+    def subset_segments(self, seg_ids: np.ndarray) -> "SiteDataset":
+        """New dataset restricted to the given segments, in sorted order
+        (the segment-level train/validation split)."""
+        seg_ids = np.sort(np.asarray(seg_ids))
+        rows = (np.concatenate([self.segment_rows(s) for s in seg_ids])
+                if len(seg_ids) else np.empty(0, dtype=np.int64))
+        sizes = [self.seg_offsets[s + 1] - self.seg_offsets[s]
+                 for s in seg_ids]
+        offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+        return dataclasses.replace(
+            self, chrom_id=self.chrom_id[rows], start=self.start[rows],
+            stop=self.stop[rows], strand_neg=self.strand_neg[rows],
+            y=self.y[rows], local1=self.local1[rows], cat=self.cat[rows],
+            seg_offsets=offsets)
 
     def position_frame(self) -> Dict[str, np.ndarray]:
         """chrom/start/end/strand columns in emission order."""

@@ -7,9 +7,31 @@ back to the CPU silently.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
+
+_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+
+
+def constant(array: np.ndarray, device, dtype) -> torch.Tensor:
+    """Module-level numpy constant ``array`` as a tensor on ``device``,
+    copied there once per process: a copy from pageable host memory
+    makes the host wait until the device has drained its stream."""
+    key = (id(array), torch.device(device), dtype)
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = torch.as_tensor(array, dtype=dtype, device=device)
+    return _CONSTANTS[key]
+
+
+def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host batch array -> tensor on ``device``; a CUDA upload goes
+    through pinned memory without blocking the host."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
 
 
 def resolve_device(cpu_only: bool = False,

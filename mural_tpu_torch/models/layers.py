@@ -5,6 +5,11 @@ Layout is channels-first ``(N, C, L)``, as in the reference torch model;
 torch's own ``BatchNorm1d`` (eps 1e-5), ``Conv1d`` and ``MaxPool1d``
 (-inf padding, floor length) carry the reference semantics, so none of
 the JAX package's TPU workarounds are needed here.
+
+A tower fed ``(N, L)`` uint8 codes instead of a one-hot runs its first
+``BN -> Conv1d -> MaxPool1d`` as the fused stem :func:`fused_stem_pool`
+(counterpart of ``FusedStemConvPool``, ``mural_tpu/models/layers.py:
+338-382``) on the same ``conv1`` parameters and buffers.
 """
 
 from __future__ import annotations
@@ -15,7 +20,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from mural_tpu_torch.device import constant
 from mural_tpu_torch.genome.encode import ONE_HOT_TABLE
+from mural_tpu_torch.ops.fused_code_conv import fold_bn_conv_table
+from mural_tpu_torch.ops.fused_train_stem import (code_conv_pool,
+                                                  hist_batch_stats)
 
 # (kernel, stride, padding) of the three pools of each tower
 MID_POOLS = ((3, 3, 1), (3, 3, 1), (3, 3, 1))
@@ -29,8 +38,7 @@ def one_hot_from_codes(codes: torch.Tensor,
                        dtype=torch.float32) -> torch.Tensor:
     """uint8 genome codes (N, L) -> fractional one-hot (N, L, 4), on the
     device of ``codes``; code 15 one-hots to zeros."""
-    table = torch.as_tensor(_ONE_HOT16, dtype=dtype, device=codes.device)
-    return table[codes.long()]
+    return constant(_ONE_HOT16, codes.device, dtype)[codes.long()]
 
 
 def BNConv(in_channels: int, out_channels: int, kernel_size: int,
@@ -103,11 +111,46 @@ def tower_layers(in_channels: int, out_channels: int,
     }
 
 
+def fused_stem_pool(conv1: nn.Sequential, codes: torch.Tensor,
+                    pool: Sequence[int]) -> torch.Tensor:
+    """``max_pool1d(conv1(one_hot(codes)), *pool)`` as the fused stem:
+    (N, L) uint8 codes -> (N, C, P).
+
+    In train mode the BN normalises with the histogram-exact batch
+    statistics (constants, as the JAX package's ``stop_gradient``) and
+    its running buffers follow torch's rule: ``0.9 * old + 0.1 * stat``
+    with the unbiased variance, and ``num_batches_tracked`` counts up.
+    So a fused-trained state_dict has the unfused one's keys and
+    meaning."""
+    bn, conv = conv1[0], conv1[1]
+    pk, ps, pp = pool
+    if ps != pk:
+        raise ValueError("fused stem requires pool stride == kernel")
+    if bn.training:
+        mean, var_b, var_u = hist_batch_stats(codes)
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)
+            bn.running_var.copy_((1 - m) * bn.running_var + m * var_u)
+            bn.num_batches_tracked.add_(1)
+        use_mean, use_var = mean, var_b
+    else:
+        use_mean, use_var = bn.running_mean, bn.running_var
+    table, bias = fold_bn_conv_table(conv.weight, conv.bias, bn.weight,
+                                     bn.bias, use_mean.detach(),
+                                     use_var.detach(), bn.eps)
+    return code_conv_pool(codes, table, bias, pk, pp)
+
+
 def tower_forward(x: torch.Tensor, conv1: nn.Module, RBs1: nn.Module,
                   conv2: nn.Module, RBs2: nn.Module, conv3: nn.Module,
                   pools: Sequence[Sequence[int]]) -> torch.Tensor:
-    """One tower's wiring: (N, C_in, L) -> (N, C)."""
-    x = nn.functional.max_pool1d(conv1(x), *pools[0])
+    """One tower's wiring: (N, C_in, L) one-hot or (N, L) uint8 codes
+    (the fused stem) -> (N, C)."""
+    if x.dim() == 2:
+        x = fused_stem_pool(conv1, x, pools[0])
+    else:
+        x = nn.functional.max_pool1d(conv1(x), *pools[0])
     x = _skip(x, RBs1)
     x = nn.functional.max_pool1d(x, *pools[1])
     x = _skip(conv2(x), RBs2)

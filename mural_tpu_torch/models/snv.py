@@ -8,8 +8,10 @@ keys (``emb_layer``, ``lin_layers.N``, ``bn_layers.N``, ``local_fc.0``,
 once their duplicate ``*.layer.N.*`` keys and ``num_batches_tracked``
 are dropped (:func:`mural_tpu_torch.train.checkpoint.clean_state_dict`).
 
-Inputs: ``cat (N, K)`` integer k-mer ids and ``distal (N, L, 4)`` one-hot
-(the JAX package's channels-last layout, transposed once inside).
+Inputs: ``cat (N, K)`` integer k-mer ids and either ``distal (N, L, 4)``
+one-hot (the JAX package's channels-last layout, transposed once inside)
+or ``distal (N, L)`` uint8 genome codes, whose towers then run their
+first BN, conv and pool as the fused stem (``layers.fused_stem_pool``).
 Output: log-probabilities ``log(clamp((local_p + (d1_p+d2_p)/2)/2,
 1e-9))``.
 """
@@ -95,8 +97,16 @@ class DualTowers(nn.Module):
 
     def forward_towers(self, distal: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """distal (N, L, C) channels-last -> head logits (d1, d2)."""
-        x = distal[:, :, :self.in_channels].transpose(1, 2)
+        """distal (N, L, C) channels-last or (N, L) uint8 codes -> head
+        logits (d1, d2)."""
+        if distal.dim() == 2:
+            if self.in_channels != 4:
+                raise ValueError(
+                    "codes input requires in_channels == 4 (no distal "
+                    f"track channels), got {self.in_channels}")
+            x = distal
+        else:
+            x = distal[:, :, :self.in_channels].transpose(1, 2)
         d1 = self.distal_fc1(self._tower(center_crop(x), "", MID_POOLS))
         d2 = self.distal_fc2(self._tower(x, "_2", LARGE_POOLS))
         return d1, d2

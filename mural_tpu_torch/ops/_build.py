@@ -1,0 +1,94 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel source under ``csrc/`` has a plain C interface.  At first
+use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library in
+``build/kernels/`` at the root of the checkout and loaded with
+``ctypes``; the library is rebuilt when it is missing or older than its
+source.  Nothing here runs at import time, so CPU-only machines import
+the kernel modules freely.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, Sequence
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# ctypes argument types: every pointer and the stream as c_void_p, every
+# int as c_int, row strides as c_longlong
+PTR, INT, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+class KernelLibrary:
+    """One ``csrc/<name>.cu`` file, built and loaded once per process.
+
+    ``signatures`` maps each exported C function to its ctypes argument
+    types; every function returns a ``cudaError_t`` (0 on success)."""
+
+    def __init__(self, name: str, signatures: Dict[str, Sequence]):
+        self.name = name
+        self.source = CSRC / f"{name}.cu"
+        self.signatures = signatures
+        self.build_log = ""
+        self._lib = None
+        self._lock = threading.Lock()
+
+    def load(self):
+        with self._lock:
+            if self._lib is not None:
+                return self._lib
+            so = BUILD_DIR / f"lib{self.name}.so"
+            if (not so.exists()
+                    or so.stat().st_mtime < self.source.stat().st_mtime):
+                self.build_log = self._build(so)
+            lib = ctypes.CDLL(str(so))
+            for fn, argtypes in self.signatures.items():
+                getattr(lib, fn).argtypes = list(argtypes)
+                getattr(lib, fn).restype = ctypes.c_int
+            self._lib = lib
+            return lib
+
+    def _build(self, so: Path) -> str:
+        """Compile the source into ``so``; returns nvcc's output (register
+        and shared-memory use from ``-Xptxas -v``)."""
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        if not os.path.exists(nvcc):
+            raise RuntimeError(f"{self.name}: nvcc not found (needed to "
+                               f"build {self.source.name} for CUDA tensors)")
+        so.parent.mkdir(parents=True, exist_ok=True)
+        # compile to a temporary name and rename, so concurrent builders
+        # never load a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
+        os.close(fd)
+        try:
+            res = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, str(self.source)],
+                capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {self.source}:\n"
+                                   f"{res.stderr}")
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        return res.stdout + res.stderr
+
+
+def check_launch(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def current_stream(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,249 @@
+"""Fused one-hot + BatchNorm + Conv1d + MaxPool1d training stem of a
+distal tower (counterpart of ``mural_tpu/ops/fused_train_stem.py``).
+
+The conv input is a one-hot table row per position, and BatchNorm with
+batch statistics is a per-channel affine whose statistics depend only on
+the code histogram (:func:`hist_batch_stats`).  So the stem collapses to
+the lookup table of :func:`mural_tpu_torch.ops.fused_code_conv.
+fold_bn_conv_table`, followed by the pool:
+
+    v[b, i, c]      = sum_kk T[kk, ext[b, i + kk], c] + bias[c]
+    pooled[b, c, p] = max_j v[b, p*pk + j, c]  (first max: jstar[b, c, p])
+
+on the pool-padded axis ``i`` (positions ``i < pp`` or ``i >= L + pp``
+are pool padding and never win) with ``ext[b, t] = codes[b, t - pp -
+cp]`` and the zero-row sentinel code 15 outside the row (the conv's zero
+padding after the BN).  The statistics carry no parameter dependence, so
+gradients reach the BN and conv parameters through the differentiable
+table fold exactly as through the unfused composition.
+
+:func:`code_conv_pool` runs the hand-written CUDA kernels of
+``csrc/code_conv_pool.cu`` on CUDA tensors -- K2, the forward, and K3,
+the backward, inside one ``torch.autograd.Function`` -- and the plain
+PyTorch versions :func:`code_conv_pool_reference` and
+:func:`code_conv_pool_backward_reference` on CPU tensors.  ``jstar`` is
+``uint8`` (``jstar < pk <= 255``) in both.  The output is channels-first
+``(B, C, P)``, the layout of the port's towers.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mural_tpu_torch.device import constant
+from mural_tpu_torch.genome.encode import ONE_HOT_TABLE
+from mural_tpu_torch.ops._build import (I64, INT, PTR, KernelLibrary,
+                                        check_launch, current_stream)
+from mural_tpu_torch.ops.fused_code_conv import (NCODES, SENTINEL,
+                                                 check_stem_args)
+
+# Launches of each CUDA kernel in this process (plain-version calls on
+# CPU tensors do not count).  Callers reset them to 0 to count a run.
+FWD_LAUNCHES = 0          # K2
+BWD_LAUNCHES = 0          # K3 (with its partial-sum reduce)
+
+LIBRARY = KernelLibrary("code_conv_pool", {
+    "code_conv_pool_fwd_launch": [PTR, I64, PTR, PTR, PTR, PTR, INT, INT,
+                                  INT, INT, INT, INT, INT, PTR],
+    "code_conv_pool_bwd_launch": [PTR, I64, PTR, PTR, PTR, PTR, INT, INT,
+                                  INT, INT, INT, INT, INT, INT, PTR],
+})
+# K3 splits the (b, p) pairs over at most this many blocks (two per SM of
+# an H100), at least 128 pairs each
+MAX_BWD_BLOCKS = 264
+MIN_PAIRS_PER_BLOCK = 128
+
+
+def pool_out_len(L: int, pk: int, pp: int) -> int:
+    """torch MaxPool1d floor output length (stride == kernel)."""
+    return (L + 2 * pp - pk) // pk + 1
+
+
+def hist_batch_stats(codes: torch.Tensor):
+    """BatchNorm batch statistics of ``one_hot(codes)`` from the 15-code
+    histogram: ``(mean (4,), biased var (4,), unbiased var (4,))`` float32.
+
+    The counts come from ``scatter_add_`` rather than ``torch.bincount``,
+    which synchronises with the host on CUDA tensors; the contraction
+    with the one-hot table runs in float64, then rounds once."""
+    n = codes.numel()
+    idx = codes.reshape(-1).long() & 15
+    cnt = torch.zeros(NCODES, dtype=torch.int64, device=codes.device)
+    cnt.scatter_add_(0, idx, torch.ones_like(idx))
+    t = constant(ONE_HOT_TABLE, codes.device, torch.float64)   # (15, 4)
+    cnt = cnt[:15].double()
+    mean = (cnt @ t) / n
+    var = torch.clamp((cnt @ (t * t)) / n - mean * mean, min=0.0)
+    unbiased = var * (n / max(n - 1, 1))
+    return mean.float(), var.float(), unbiased.float()
+
+
+def _ext_codes(codes: torch.Tensor, k: int, pp: int, P: int, pk: int):
+    """(B, L) codes -> (B, P*pk + k - 1) int64 ``ext`` (sentinel padded)."""
+    L = codes.shape[1]
+    lo = pp + (k - 1) // 2
+    hi = max(P * pk + k - 1 - lo - L, 0)
+    ext = torch.nn.functional.pad(codes.long(), (lo, hi), value=SENTINEL)
+    return ext[:, :P * pk + k - 1]
+
+
+def code_conv_pool_reference(codes: torch.Tensor, table: torch.Tensor,
+                             bias: torch.Tensor, pk: int, pp: int):
+    """Plain PyTorch version of K2: ``(pooled (B, C, P) float32, jstar
+    (B, C, P) uint8)``, after ``_reference_fwd`` of the JAX package."""
+    k, _, C = table.shape
+    B, L = codes.shape
+    P = pool_out_len(L, pk, pp)
+    Lp = P * pk
+    ext = _ext_codes(codes, k, pp, P, pk)
+    acc = torch.zeros(B, Lp, C, dtype=torch.float32, device=codes.device)
+    for kk in range(k):
+        acc = acc + table[kk][ext[:, kk:kk + Lp]]
+    acc = acc + bias.to(torch.float32)
+    i = torch.arange(Lp, device=codes.device)[None, :, None]
+    acc = torch.where((i >= pp) & (i < L + pp), acc, float("-inf"))
+    xw = acc.reshape(B, P, pk, C)
+    best = xw[:, :, 0]
+    best_j = torch.zeros(B, P, C, dtype=torch.uint8, device=codes.device)
+    for j in range(1, pk):
+        upd = xw[:, :, j] > best                 # first max wins ties
+        best = torch.where(upd, xw[:, :, j], best)
+        best_j = torch.where(upd, j, best_j)
+    return (best.permute(0, 2, 1).contiguous(),
+            best_j.permute(0, 2, 1).contiguous())
+
+
+def code_conv_pool_backward_reference(codes: torch.Tensor,
+                                      jstar: torch.Tensor, g: torch.Tensor,
+                                      k: int, pk: int, pp: int
+                                      ) -> torch.Tensor:
+    """Plain PyTorch version of K3: ``dtable (k, 16, C)`` float32 from
+    ``g (B, C, P)`` routed to the first-max positions ``jstar``, after
+    ``_reference_bwd`` of the JAX package."""
+    B, C, P = g.shape
+    ext = _ext_codes(codes, k, pp, P, pk)
+    pos = (torch.arange(P, device=g.device) * pk)[None, None, :] \
+        + jstar.long()                                      # (B, C, P)
+    chan = torch.arange(C, device=g.device)[None, :, None]
+    g = g.to(torch.float32)
+    dtable = torch.zeros(k, NCODES * C, dtype=torch.float32,
+                         device=g.device)
+    for kk in range(k):
+        q = ext.gather(1, (pos + kk).reshape(B, C * P)).reshape(B, C, P)
+        dtable[kk].index_add_(0, (q * C + chan).reshape(-1), g.reshape(-1))
+    return dtable.reshape(k, NCODES, C)
+
+
+def _check_pool(pk: int, pp: int):
+    if not (0 < pk <= 255 and 0 <= 2 * pp <= pk):
+        raise ValueError(f"code_conv_pool: need 0 < pk <= 255 and "
+                         f"0 <= pp <= pk/2, got pk={pk}, pp={pp}")
+
+
+def _fwd_kernel(codes, table, bias, pk, pp):
+    check_stem_args(codes, table, bias, "code_conv_pool")
+    B, L = codes.shape
+    k, _, C = table.shape
+    P = pool_out_len(L, pk, pp)
+    pooled = torch.empty((B, C, P), dtype=torch.float32, device=codes.device)
+    jstar = torch.empty((B, C, P), dtype=torch.uint8, device=codes.device)
+    lib = LIBRARY.load()
+    with torch.cuda.device(codes.device):
+        err = lib.code_conv_pool_fwd_launch(
+            codes.data_ptr(), codes.stride(0), table.data_ptr(),
+            bias.data_ptr(), pooled.data_ptr(), jstar.data_ptr(), B, L, k,
+            C, pk, pp, P, current_stream(codes))
+    check_launch(err, f"code_conv_pool forward (B={B}, L={L}, k={k}, "
+                      f"C={C}, pk={pk})")
+    global FWD_LAUNCHES
+    FWD_LAUNCHES += 1
+    return pooled, jstar
+
+
+def bwd_blocks(B: int, P: int) -> int:
+    """K3's block count for ``B * P`` (b, p) pairs."""
+    return max(1, min(MAX_BWD_BLOCKS, -(-B * P // MIN_PAIRS_PER_BLOCK)))
+
+
+def _bwd_kernel(codes, jstar, g, k, pk, pp):
+    B, C, P = g.shape
+    L = codes.shape[1]
+    if not (g.dtype == torch.float32 and g.is_contiguous()
+            and jstar.dtype == torch.uint8 and jstar.is_contiguous()
+            and tuple(jstar.shape) == (B, C, P)
+            and codes.dtype == torch.uint8 and codes.dim() == 2
+            and codes.shape[0] == B and codes.stride(1) == 1
+            and g.device == codes.device == jstar.device):
+        raise TypeError("code_conv_pool backward: need (B, L) uint8 codes "
+                        "with unit column stride, and contiguous float32 g "
+                        "and uint8 jstar of one (B, C, P) shape, all on one "
+                        "device")
+    n_blocks = bwd_blocks(B, P)
+    partial = torch.empty((n_blocks, k * NCODES * C), dtype=torch.float32,
+                          device=g.device)
+    dtable = torch.empty((k, NCODES, C), dtype=torch.float32, device=g.device)
+    lib = LIBRARY.load()
+    with torch.cuda.device(g.device):
+        err = lib.code_conv_pool_bwd_launch(
+            codes.data_ptr(), codes.stride(0), jstar.data_ptr(),
+            g.data_ptr(), partial.data_ptr(), dtable.data_ptr(), B, L, k, C,
+            pk, pp, P, n_blocks, current_stream(g))
+    check_launch(err, f"code_conv_pool backward (B={B}, L={L}, k={k}, "
+                      f"C={C}, pk={pk})")
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return dtable
+
+
+def code_conv_pool_forward(codes, table, bias, pk: int, pp: int):
+    """``(pooled, jstar)``: K2 on a CUDA tensor, the plain version on a
+    CPU tensor; any other device raises."""
+    _check_pool(pk, pp)
+    if codes.device.type == "cpu":
+        return code_conv_pool_reference(codes, table, bias, pk, pp)
+    if codes.device.type != "cuda":
+        raise ValueError(f"code_conv_pool: unsupported device {codes.device}")
+    return _fwd_kernel(codes, table, bias, pk, pp)
+
+
+def code_conv_pool_backward(codes, jstar, g, k: int, pk: int, pp: int):
+    """``dtable``: K3 on a CUDA tensor, the plain version on a CPU
+    tensor."""
+    if g.device.type == "cpu":
+        return code_conv_pool_backward_reference(codes, jstar, g, k, pk, pp)
+    if g.device.type != "cuda":
+        raise ValueError(f"code_conv_pool: unsupported device {g.device}")
+    return _bwd_kernel(codes, jstar, g, k, pk, pp)
+
+
+class CodeConvPool(torch.autograd.Function):
+    """K2 forward, K3 backward; ``dbias = g.sum`` stays a torch
+    reduction, as the JAX package computes it outside its kernel."""
+
+    @staticmethod
+    def forward(ctx, codes, table, bias, pk: int, pp: int):
+        pooled, jstar = code_conv_pool_forward(codes, table, bias, pk, pp)
+        ctx.save_for_backward(codes, jstar)
+        ctx.k, ctx.pk, ctx.pp = table.shape[0], pk, pp
+        return pooled
+
+    @staticmethod
+    def backward(ctx, g):
+        codes, jstar = ctx.saved_tensors
+        g = g.contiguous()
+        dtable = dbias = None
+        if ctx.needs_input_grad[1]:
+            dtable = code_conv_pool_backward(codes, jstar, g, ctx.k, ctx.pk,
+                                             ctx.pp)
+        if ctx.needs_input_grad[2]:
+            dbias = g.sum((0, 2))
+        return None, dtable, dbias, None, None
+
+
+def code_conv_pool(codes: torch.Tensor, table: torch.Tensor,
+                   bias: torch.Tensor, pk: int, pp: int) -> torch.Tensor:
+    """codes (B, L) uint8 (row-strided views allowed), table (k, 16, C),
+    bias (C,) -> pooled (B, C, P) float32; differentiable in ``table``
+    and ``bias``.  ``pk``/``pp`` are the pool kernel (== stride) and
+    padding; the table's sentinel row 15 must be zero."""
+    return CodeConvPool.apply(codes, table, bias, pk, pp)

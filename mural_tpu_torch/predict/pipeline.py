@@ -27,6 +27,7 @@ from mural_tpu_torch.models.layers import one_hot_from_codes
 from mural_tpu_torch.models.registry import build_model_from_config
 from mural_tpu_torch.train.checkpoint import (load_calibrator,
                                               load_checkpoint, load_config)
+from mural_tpu_torch.train.steps import masked_ce_sum
 
 
 @dataclasses.dataclass
@@ -63,16 +64,6 @@ def _check_ported(opts: PredictOptions) -> None:
         if value:
             raise NotImplementedError(
                 f"predict {flag} is not ported yet (ROADMAP.md item {item})")
-
-
-def masked_ce_sum(logits: torch.Tensor, y: torch.Tensor,
-                  mask: torch.Tensor) -> torch.Tensor:
-    """Sum over valid rows of -(log_softmax(logits)[y]); the model's
-    log-probabilities are treated as logits, as the reference's
-    CrossEntropyLoss(reduction='sum') does."""
-    logz = torch.logsumexp(logits, dim=1)
-    picked = logits.gather(1, y[:, None])[:, 0]
-    return torch.sum((logz - picked) * mask)
 
 
 def run_predict(opts: PredictOptions, model_type: str = "snv",

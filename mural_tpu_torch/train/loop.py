@@ -1,0 +1,355 @@
+"""The per-trial training pipeline, host-fed (counterpart of
+``mural_tpu/train/loop.py``; ref MuRaL/training.py:45-567).
+
+dataset build -> segment-level train/validation split (``split_seed``)
+-> emb_dims -> SNVNet2 build + the reference init from ``rng_seed`` ->
+weight_decay_auto -> optimizer and LR schedule -> epochs of train steps
+on host-built batches -> per epoch: validation, FullDirichlet fit,
+checkpoint triple, ``epoch_<n>_metrics.txt``, EarlyStopping and ROP ->
+``progress.csv``.
+
+The epoch tail (calibration, metrics, checkpoint) runs inline after
+validation, where the JAX package overlaps it with the next epoch on a
+thread; the files it writes and their order are the same.  With
+``fused_stem='on'`` each distal tower's first BN -> conv -> pool runs as
+the fused stem (CUDA kernels K2/K3 on the card, see
+:mod:`mural_tpu_torch.ops.fused_train_stem`); ``'auto'`` resolves to off,
+as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from mural_tpu_torch.calibrate.fit import calibrate_prob
+from mural_tpu_torch.data.batcher import segment_pool_batches
+from mural_tpu_torch.data.dataset import SiteDataset, prepare_dataset
+from mural_tpu_torch.device import resolve_device, to_device
+from mural_tpu_torch.genome.fasta import Genome
+from mural_tpu_torch.models.init import init_weights
+from mural_tpu_torch.models.registry import build_model
+from mural_tpu_torch.train.checkpoint import save_checkpoint
+from mural_tpu_torch.train.early_stopping import EarlyStopping
+from mural_tpu_torch.train.optim import (LRSchedule, ReduceLROnPlateau,
+                                         auto_weight_decay, build_optimizer)
+from mural_tpu_torch.train.steps import (TrainState, eval_step, model_input,
+                                         train_step)
+from mural_tpu_torch.utils.params import count_parameters
+from mural_tpu_torch.utils.printer import get_printer
+from mural_tpu_torch.utils.trials import write_progress_csv
+
+
+@dataclasses.dataclass
+class TrainOptions:
+    """Non-searchable options (the reference's argparse ``args``).  The
+    options of the JAX package that this slice does not port are kept so
+    that a run asking for them raises (:func:`check_ported`)."""
+    train_data: str
+    ref_genome: str
+    validation_data: Optional[str] = None
+    bw_paths: Optional[str] = None
+    distal_order: int = 1
+    seq_only: bool = False
+    without_bw_distal: bool = False
+    n_class: int = 4
+    model_no: int = 2
+    epochs: int = 10
+    valid_ratio: float = 0.1
+    split_seed: Optional[int] = None
+    save_valid_preds: bool = False
+    poisson_calib: bool = False
+    with_h5: bool = False
+    grace_period: int = 5
+    trial_dir: str = "."
+    trial_training_log: Optional[str] = None
+    rng_seed: int = 0
+    # torch device; None -> the CUDA card (RuntimeError without one)
+    device: Optional[object] = None
+    dp_devices: int = 1
+    profile_dir: Optional[str] = None
+    bf16: bool = False
+    steps_per_dispatch: Optional[int] = None   # None or 1: one step a call
+    resident: str = "auto"                     # auto runs host-fed
+    fused_stem: str = "auto"                   # auto|on|off; auto -> off
+
+
+def check_ported(opts: TrainOptions, model_type: str = "snv") -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP.md item of each
+    option this slice does not run."""
+    not_ported = [
+        (model_type != "snv", "mural_indel", 5),
+        (opts.model_no != 2, f"--model_no {opts.model_no}", 6),
+        (opts.bw_paths, "--bw_paths", 6),
+        (opts.distal_order != 1, f"--distal_order {opts.distal_order}", 6),
+        (opts.with_h5, "--with_h5", 4),
+        (opts.save_valid_preds, "--save_valid_preds", 3),
+        # Poisson-calibrated probabilities feed only the k-mer and
+        # regional evaluation, which is not ported
+        (opts.poisson_calib, "--poisson_calib", 3),
+        (opts.bf16, "--bf16", 10),
+        ((opts.steps_per_dispatch or 1) > 1, "--steps_per_dispatch > 1", 10),
+        (opts.resident == "on", "--resident_data on", 10),
+        (opts.dp_devices > 1, "--dp_devices > 1", 10),
+        (opts.profile_dir, "--profile_dir", 10),
+    ]
+    for value, flag, item in not_ported:
+        if value:
+            raise NotImplementedError(
+                f"train {flag} is not ported yet (ROADMAP.md item {item})")
+
+
+def split_segments_like_torch(n_segments: int, valid_ratio: float,
+                              split_seed: int):
+    """Segment-level random split with ``torch.random_split`` parity
+    (training.py:220-229): randperm under a manually seeded generator,
+    first chunk train, second valid, valid ids sorted."""
+    valid_size = int(n_segments * valid_ratio)
+    train_size = n_segments - valid_size
+    gen = torch.Generator().manual_seed(int(split_seed))
+    perm = torch.randperm(n_segments, generator=gen).numpy()
+    return (perm[:train_size],
+            np.sort(perm[train_size:train_size + valid_size]))
+
+
+def init_model(model: torch.nn.Module, ds: SiteDataset,
+               rng_seed: int) -> torch.nn.Module:
+    """The reference weight init drawn from ``rng_seed``."""
+    return init_weights(model, torch.Generator().manual_seed(rng_seed))
+
+
+def _check_classes(ds: SiteDataset, n_class: int, what: str) -> None:
+    """Fail fast on labels the run cannot fit: a class >= n_class, or (for
+    validation) a class never observed, which the Dirichlet calibration
+    needs (it fits k = the classes observed in validation)."""
+    top = int(ds.y.max(initial=0))
+    if top >= n_class:
+        raise ValueError(f"data contains mutation class {top} but "
+                         f"--n_class is {n_class}")
+    if what != "valid":
+        return
+    seen = np.unique(ds.y)
+    if len(seen) < n_class:
+        missing = sorted(set(range(n_class)) - set(seen.tolist()))
+        raise ValueError(
+            f"validation data never shows mutation class(es) {missing} "
+            f"(observed {sorted(int(c) for c in seen)}); Dirichlet "
+            "calibration requires every class observed -- if the data "
+            "really has fewer classes, lower --n_class; if the classes "
+            "are just rare, raise --valid_ratio or try another "
+            "--split_seed so the validation split samples them")
+
+
+def _softmax(logits: np.ndarray) -> np.ndarray:
+    e = np.exp(logits - logits.max(axis=1, keepdims=True))
+    return e / e.sum(axis=1, keepdims=True)
+
+
+def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
+                report_fn: Optional[Callable[[Dict], bool]] = None) -> Dict:
+    """Run one training trial; returns the final metrics dict.
+
+    ``report_fn(metrics) -> keep_going`` is the trial runner's hook;
+    returning False stops the trial after this epoch."""
+    check_ported(opts, model_type)
+    printer = get_printer(False, opts.trial_training_log)
+    t_start = time.time()
+    device = (torch.device(opts.device) if opts.device is not None
+              else resolve_device())
+    # the reference semantics are float32; cuDNN's TF32 default for
+    # convolutions would keep only ~3 decimal digits
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # dropout draws from torch's global generator (the JAX package folds
+    # its dropout key per step: the two streams differ)
+    torch.manual_seed(opts.rng_seed)
+    printer("NOTE: no bigWig files provided.")
+
+    genome = Genome.from_fasta(opts.ref_genome)
+
+    def prepare(bed):
+        return prepare_dataset(
+            bed, genome, central_bp=config["segment_center"],
+            local_radius=config["local_radius"],
+            local_order=config["local_order"],
+            distal_radius=config["distal_radius"],
+            distal_order=opts.distal_order, model_type=model_type)
+
+    step_t = time.time()
+    ds = prepare(opts.train_data)
+    printer("training set preprocess used time:", time.time() - step_t)
+    if opts.validation_data:
+        printer("using given validation file:", opts.validation_data)
+        ds_train, ds_valid = ds, prepare(opts.validation_data)
+    else:
+        split_seed = (opts.split_seed if opts.split_seed is not None
+                      else np.random.randint(0, 10000))
+        train_ids, valid_ids = split_segments_like_torch(
+            ds.n_segments, opts.valid_ratio, split_seed)
+        ds_train = ds.subset_segments(train_ids)
+        ds_valid = ds.subset_segments(valid_ids)
+    train_size, valid_size = ds_train.n_sites, ds_valid.n_sites
+    _check_classes(ds_train, opts.n_class, "train")
+    _check_classes(ds_valid, opts.n_class, "valid")
+    printer("train_size, valid_size:", train_size, valid_size)
+
+    # --- config augmentation (training.py:170-177,246-255) ------------
+    config = dict(config)
+    config["n_class"] = opts.n_class
+    config["model_no"] = opts.model_no
+    config["without_bw_distal"] = opts.without_bw_distal
+    config["seq_only"] = opts.seq_only
+    config["restart_lr"] = config.get("restart_lr", 1e-4)
+    config["min_lr"] = config.get("min_lr", 1e-6)
+    config["emb_dims"] = [(x, min(16, int(x ** 0.25)))
+                          for x in ds.cat_dims]
+    config["n_cont"] = 0
+    in_channels = 4 ** opts.distal_order
+    common = {"emb_dims": config["emb_dims"], "n_cont": 0,
+              "n_class": opts.n_class, "distal_order": opts.distal_order,
+              "in_channels": in_channels}
+    model = build_model(opts.model_no, config, common, model_type)
+    use_fused_stem = opts.fused_stem == "on" and in_channels == 4
+    if use_fused_stem:
+        printer("fused train stem: on (one-hot+BN+conv+pool as the CUDA "
+                "kernels K2/K3)")
+    model = init_model(model, ds, opts.rng_seed).to(device)
+    total_params = count_parameters(model, printer=printer)
+
+    # --- optimizer / schedule -----------------------------------------
+    config["weight_decay"] = auto_weight_decay(
+        config.get("weight_decay_auto"), config["batch_size"],
+        opts.epochs, max(train_size, 1), config.get("weight_decay", 0.0))
+    printer("weight_decay:", config["weight_decay"])
+    schedule = LRSchedule.build(
+        config.get("lr_scheduler", "StepLR"), config["learning_rate"],
+        config.get("LR_gamma", 0.9), config["batch_size"],
+        max(train_size, 1), config["restart_lr"], config["min_lr"])
+    state = TrainState(model, build_optimizer(
+        config.get("optim", "Adam"), model.parameters(),
+        config["weight_decay"]), schedule)
+
+    es = EarlyStopping(patience=opts.grace_period, verbose=True,
+                       trace_func=printer)
+    rop = (ReduceLROnPlateau(config["learning_rate"])
+           if config.get("lr_scheduler") == "ROP" else None)
+    min_loss, min_loss_epoch, after_min_loss = 0.0, 0, 0
+    metrics: Dict = {}
+    host_rng = np.random.default_rng(opts.rng_seed)
+    B = config["batch_size"]
+    row_ids = torch.arange(B, device=device)
+
+    def device_batch(batch):
+        mask = (row_ids < batch.n_valid).float()
+        return (to_device(batch.y, device).long(),
+                to_device(batch.cat, device).long(),
+                model_input(to_device(batch.distal, device),
+                            use_fused_stem), mask)
+
+    def epoch_tail(epoch, valid_probs, total_loss, valid_total_loss):
+        """Calibration, losses, checkpoint triple and metrics file."""
+        nonlocal min_loss, min_loss_epoch, after_min_loss
+        fdiri_cal, fdiri_nll = calibrate_prob(
+            valid_probs, ds_valid.local_frame()["mut_type"], "FullDiri",
+            printer=printer)
+        printer("k-mer and regional evaluation (and its Poisson-"
+                "calibrated variant) is not ported yet (ROADMAP.md item "
+                "3): score nan")
+        printer("Training Loss: ", total_loss / max(train_size, 1))
+        printer("Validation Loss: ", valid_total_loss / max(valid_size, 1))
+        printer("Validation Loss (after fdiri_cal): ", fdiri_nll)
+        save_path = os.path.join(opts.trial_dir, f"checkpoint_{epoch}",
+                                 "model")
+        save_checkpoint(save_path, model, config, fdiri_cal)
+        current_loss = valid_total_loss / max(valid_size, 1)
+        if epoch == 0 or current_loss < min_loss:
+            min_loss, min_loss_epoch, after_min_loss = current_loss, epoch, 0
+        else:
+            after_min_loss = epoch - min_loss_epoch
+        m = {"loss": current_loss, "fdiri_loss": fdiri_nll,
+             "after_min_loss": after_min_loss, "score": float("nan"),
+             "total_params": total_params, "epoch": epoch}
+        with open(os.path.join(opts.trial_dir, f"checkpoint_{epoch}",
+                               f"epoch_{epoch}_metrics.txt"), "w") as fh:
+            for k, v in m.items():
+                fh.write(f"{k}: {v}\n")
+        return m
+
+    for epoch in range(opts.epochs):
+        epoch_t = time.time()
+        # the loss accumulates on the device: no host sync per step
+        total_loss_dev = torch.zeros((), dtype=torch.float32, device=device)
+        n_steps = 0
+        fetch_t = train_t = 0.0
+        t0 = time.time()
+        for batch in segment_pool_batches(
+                ds_train, config["sampled_segments"], B, shuffle=True,
+                rng=host_rng):
+            t1 = time.time()
+            fetch_t += t1 - t0
+            y, cat, distal, mask = device_batch(batch)
+            loss, _ = train_step(state, y, cat, distal, mask)
+            total_loss_dev += loss
+            n_steps += 1
+            t0 = time.time()
+            train_t += t0 - t1
+            if n_steps % 1000 == 0:
+                printer(f"Batch {n_steps}: fetch {fetch_t:.1f}s, "
+                        f"train {train_t:.1f}s (last 1000, async)")
+                fetch_t = train_t = 0.0
+        total_loss = float(total_loss_dev)
+        t_train_done = time.time()
+        printer("optimizer learning rate:", state.lr())
+
+        # ---- validation ----------------------------------------------
+        vloss_dev = torch.zeros((), dtype=torch.float32, device=device)
+        parts: List[torch.Tensor] = []
+        n_valid_batches = 0
+        for batch in segment_pool_batches(
+                ds_valid, config["sampled_segments"], B, shuffle=False,
+                pad_final=True):
+            y, cat, distal, mask = device_batch(batch)
+            logits, vloss = eval_step(model, y, cat, distal, mask)
+            vloss_dev += vloss
+            parts.append(logits[:batch.n_valid])
+            n_valid_batches += 1
+        valid_total_loss = float(vloss_dev)
+        valid_logits = (torch.cat(parts).cpu().numpy() if parts
+                        else np.zeros((0, opts.n_class), np.float32))
+        t_valid_done = time.time()
+
+        metrics = epoch_tail(epoch, _softmax(valid_logits), total_loss,
+                             valid_total_loss)
+        stop = report_fn is not None and report_fn(metrics) is False
+        if stop:
+            printer("Trial stopped by scheduler")
+        current_loss = metrics["loss"]
+        es(current_loss)
+        if es.early_stop:
+            printer("Early stopping")
+            break
+        if rop is not None:
+            state.rop_lr = rop.step(current_loss)
+        state.epoch += 1
+        now = time.time()
+        printer(f"Epoch {epoch} used time: {now - epoch_t:.3f}s "
+                f"(train {n_steps} steps in {t_train_done - epoch_t:.3f}s, "
+                f"valid {n_valid_batches} batches in "
+                f"{t_valid_done - t_train_done:.3f}s, calib/ckpt "
+                f"{now - t_valid_done:.3f}s)")
+        sys.stdout.flush()
+        if stop:
+            break
+
+    best_epoch = metrics.get("epoch", 0) - es.counter
+    printer(f"Best Epoch: {best_epoch}")
+    printer(f"training finished, total time {time.time() - t_start:.1f}s")
+    metrics["best_epoch"] = best_epoch
+    write_progress_csv(opts.trial_dir)
+    return metrics

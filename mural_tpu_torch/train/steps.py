@@ -1,0 +1,81 @@
+"""Train and eval steps (counterpart of ``mural_tpu/train/steps.py`` and
+the packed single step of ``mural_tpu/train/packed.py``).
+
+A train step: forward in train mode (BN batch statistics, dropout),
+masked CE-sum (the reference's ``CrossEntropyLoss(reduction='sum')``),
+backward, ``clip_grad_norm_(..., 10)``, the scheduled LR, then
+``optimizer.step()``.  torch's clip adds 1e-6 to the norm, optax's does
+not: when clipping fires the two scale the gradient about 1e-7 apart.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from mural_tpu_torch.models.layers import one_hot_from_codes
+from mural_tpu_torch.train.optim import LRSchedule
+
+GRAD_CLIP = 10.0
+
+
+def masked_ce_sum(logits: torch.Tensor, y: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Sum over valid rows of -(log_softmax(logits)[y]); the model's
+    log-probabilities are re-normalised as logits, as the reference's
+    CrossEntropyLoss does."""
+    logz = torch.logsumexp(logits, dim=1)
+    picked = logits.gather(1, y[:, None])[:, 0]
+    return torch.sum((logz - picked) * mask)
+
+
+def model_input(codes: torch.Tensor, fused_stem: bool) -> torch.Tensor:
+    """The distal input: raw codes for the fused stem, else the one-hot."""
+    return codes if fused_stem else one_hot_from_codes(codes)
+
+
+class TrainState:
+    """Model, optimizer and the LR bookkeeping of
+    ``mural_tpu/train/state.py``: the global optimizer-step counter, the
+    epoch counter and the ROP learning rate."""
+
+    def __init__(self, model: torch.nn.Module,
+                 optimizer: torch.optim.Optimizer, schedule: LRSchedule):
+        self.model = model
+        self.optimizer = optimizer
+        self.schedule = schedule
+        self.step = 0
+        self.epoch = 0
+        self.rop_lr = schedule.base_lr
+
+    def lr(self) -> float:
+        return self.schedule.lr_at(self.step, self.epoch, self.rop_lr)
+
+
+def train_step(state: TrainState, y: torch.Tensor, cat: torch.Tensor,
+               distal: torch.Tensor, mask: torch.Tensor
+               ) -> Tuple[torch.Tensor, float]:
+    """One optimizer step; returns (loss on the device, LR used)."""
+    model = state.model
+    model.train()
+    lr = state.lr()
+    loss = masked_ce_sum(model(cat, distal), y, mask)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    torch.nn.utils.clip_grad_norm_(model.parameters(), GRAD_CLIP)
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    state.optimizer.step()
+    state.step += 1
+    return loss.detach(), lr
+
+
+@torch.no_grad()
+def eval_step(model: torch.nn.Module, y: torch.Tensor, cat: torch.Tensor,
+              distal: torch.Tensor, mask: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eval-mode forward: (logits, masked loss sum), both on the device."""
+    model.eval()
+    logits = model(cat, distal)
+    return logits, masked_ce_sum(logits, y, mask)

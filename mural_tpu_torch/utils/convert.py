@@ -88,4 +88,9 @@ def state_dict_from_jax(variables: Dict,
     if missing:
         raise KeyError(f"Flax variables leave model entries unfilled: "
                        f"{missing}")
+    # Flax tracks no BN step count; a fresh counter completes the
+    # state_dict, so it loads with strict=True
+    for name, value in model.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            out[name] = torch.zeros_like(value)
     return out

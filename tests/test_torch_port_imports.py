@@ -14,6 +14,11 @@ from mural_tpu.calibrate.dirichlet import FullDirichletCalibrator
 from mural_tpu.calibrate.multinomial import MultinomialRegression
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TRAIN_SLICE = [f"mural_tpu_torch.{m}" for m in (
+    "ops._build", "ops.fused_train_stem", "train.steps", "train.optim",
+    "train.early_stopping", "train.loop", "calibrate.fit",
+    "calibrate.metrics", "tune.runner", "utils.trials", "utils.params",
+    "utils.printer")]
 
 
 def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
@@ -43,6 +48,7 @@ def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
                         if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                                "optax", "mural_tpu"))
         print("MODULES", len(names), type(cal).__module__)
+        print("NAMES", ",".join(names))
         print("BANNED", banned)
     """)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -52,9 +58,11 @@ def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     lines = dict(line.split(" ", 1) for line in res.stdout.splitlines()
-                 if line.startswith(("MODULES", "BANNED")))
+                 if line.startswith(("MODULES", "BANNED", "NAMES")))
     n_modules, cal_module = lines["MODULES"].split()
-    assert int(n_modules) >= 25
+    assert int(n_modules) >= 44
+    # the training slice's modules are among those imported
+    assert set(TRAIN_SLICE) <= set(lines["NAMES"].split(","))
     assert cal_module == "mural_tpu_torch.calibrate.dirichlet"
     assert lines["BANNED"] == "[]"
     np.testing.assert_allclose(np.load(tmp_path / "out.npy"),

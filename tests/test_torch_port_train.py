@@ -1,0 +1,131 @@
+"""The port's training slice (``mural_snv train`` for SNVNet2) against the
+JAX package on the CPU, the parts outside the train step: LR schedules
+and weight decay, the segment split, the calibrator fits, and the train
+flags that raise.  The train step is in ``test_torch_port_train_step.py``
+and one epoch of ``train_trial`` with the CLI drive in
+``test_torch_port_train_trial.py``; both take ``CONFIG`` from here."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import mural_tpu.train.loop as j_loop
+from mural_tpu.calibrate.dirichlet import \
+    FullDirichletCalibrator as JFullDirichlet
+from mural_tpu.train import optim as j_optim
+from mural_tpu_torch.calibrate.dirichlet import FullDirichletCalibrator
+from mural_tpu_torch.cli.mural_snv import main as port_cli
+from mural_tpu_torch.train import loop
+from mural_tpu_torch.train.optim import (LRSchedule, ReduceLROnPlateau,
+                                         auto_weight_decay)
+
+# small SNVNet2 widths; CLI defaults otherwise
+CONFIG = dict(
+    segment_center=4000, distal_radius=200, CNN_kernel_size=3,
+    CNN_out_channels=8, batch_size=32, sampled_segments=2,
+    learning_rate=1e-3, optim="Adam", lr_scheduler="StepLR", LR_gamma=0.9,
+    weight_decay=1e-5, weight_decay_auto=0.1, restart_lr=1e-4, min_lr=1e-6,
+    transfer_learning=False, local_radius=3, local_order=2,
+    local_hidden1_size=30, local_hidden2_size=10, emb_dropout=0.0,
+    distal_fc_dropout=0.0, local_dropout=0.0)
+
+
+def _rel(a, b):
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+@pytest.mark.parametrize("name,batch_size,train_size", [
+    ("StepLR", 64000, 10 ** 7),     # decays every 10 steps, restarts
+    ("StepLR2", 32, 1600),          # 50 steps per epoch, restarted each
+    ("constant", 32, 1600)])
+def test_lr_schedules_match_jax(name, batch_size, train_size):
+    args = (name, 1e-3, 0.5, batch_size, train_size, 1e-4, 1e-6)
+    ours, theirs = LRSchedule.build(*args), j_optim.LRSchedule.build(*args)
+    assert ours.step_size == theirs.step_size
+    assert ours.steps_per_epoch == theirs.steps_per_epoch
+    spe = ours.steps_per_epoch
+    for epoch in range(3):
+        for step in range(epoch * spe, epoch * spe + min(spe, 150) + 5):
+            want = float(theirs.lr_at(jnp.asarray(step), jnp.asarray(epoch)))
+            got = ours.lr_at(step, epoch)
+            # the JAX schedule runs in float32: gamma's rounding (up to
+            # 6e-8 relative) compounds once per decay (at most one per
+            # step here), and the pow and the cast add a few ulps
+            assert _rel(got, want) <= 6e-8 * (step + 4), (step, epoch)
+
+
+def test_rop_and_weight_decay_match_jax():
+    ours, theirs = ReduceLROnPlateau(1e-3), j_optim.ReduceLROnPlateau(1e-3)
+    for metric in (1.0, 0.9, 0.95, 0.94, 0.9399, 0.96, 0.97, 0.5, 0.6, 0.7):
+        assert ours.step(metric) == theirs.step(metric)
+    for wda, bs, epochs, size, wd in ((0.1, 128, 10, 50000, 1e-5),
+                                      (0.5, 32, 3, 999, 0.0),
+                                      (None, 128, 10, 100, 3e-4),
+                                      (0.0, 128, 10, 100, 3e-4)):
+        want = j_optim.auto_weight_decay(wda, bs, epochs, size, wd)
+        assert _rel(auto_weight_decay(wda, bs, epochs, size, wd),
+                    want) <= 1e-7
+    with pytest.raises(ValueError, match="smaller than 1"):
+        auto_weight_decay(1.0, 128, 10, 100, 0.0)
+
+
+@pytest.mark.parametrize("n", [1, 7, 100, 1234])
+def test_segment_split_matches_jax(n):
+    for ratio, seed in ((0.1, 0), (0.25, 7), (0.5, 2 ** 33 + 5)):
+        ours = loop.split_segments_like_torch(n, ratio, seed)
+        theirs = j_loop.split_segments_like_torch(n, ratio, seed)
+        for a, b in zip(ours, theirs):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_full_dirichlet_fit_matches_jax():
+    rng = np.random.default_rng(5)
+    y = rng.integers(0, 4, size=3000)
+    logits = rng.normal(size=(3000, 4)) + 1.5 * np.eye(4)[y]
+    probs = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    ours = FullDirichletCalibrator().fit(probs, y)
+    theirs = JFullDirichlet().fit(probs, y)
+    np.testing.assert_allclose(ours.weights_, theirs.weights_, rtol=0,
+                               atol=1e-8)
+    assert abs(ours.final_loss_ - theirs.final_loss_) <= 1e-10
+    np.testing.assert_allclose(ours.predict_proba(probs[:50]),
+                               theirs.predict_proba(probs[:50]), rtol=1e-8)
+
+
+@pytest.mark.parametrize("name", ["FullDiri", "TempS", "VectS",
+                                  "FullDiriODIR"])
+def test_calibrate_prob_matches_jax(name):
+    """calibrate_prob's fit and its before/after metrics against JAX."""
+    from mural_tpu.calibrate.fit import calibrate_prob as j_calibrate_prob
+    from mural_tpu_torch.calibrate.fit import calibrate_prob
+    rng = np.random.default_rng(6)
+    y = rng.integers(0, 4, size=2000)
+    logits = rng.normal(size=(2000, 4)) + np.eye(4)[y]
+    probs = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    lines = {}
+    for key, fn in (("port", calibrate_prob), ("jax", j_calibrate_prob)):
+        out = []
+        cal, nll = fn(probs, y, name, printer=lambda *a: out.append(a))
+        lines[key] = (cal, nll, out)
+    (cal, nll, out), (j_cal, j_nll, j_out) = lines["port"], lines["jax"]
+    # at the optimum a Newton step changes the loss by ~1e-16, and float64
+    # round-off decides whether it counts as an improvement: one solver
+    # may take a last ~1e-7 step that the other declines
+    np.testing.assert_allclose(cal.weights_, j_cal.weights_, rtol=0,
+                               atol=1e-6)
+    assert abs(nll - j_nll) <= 1e-10
+    assert [a[0] for a in out] == [a[0] for a in j_out]
+    # the before/after lines print ECE, CwECE and Brier to 8 digits
+    assert out[-2:] == j_out[-2:]
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--use_ray"], 8), (["--n_parallel", "2"], 8),
+    (["--trial_executor", "process"], 8), (["--bf16"], 10),
+    (["--steps_per_dispatch", "8"], 10), (["--resident_data", "on"], 10),
+    (["--with_h5"], 4), (["--model_no", "1"], 6), (["--bw_paths", "x"], 6),
+    (["--poisson_calib"], 3), (["--save_valid_preds"], 3),
+    (["--trial_ensemble", "auto"], 8), (["--distal_order", "2"], 6)])
+def test_cli_train_flags_not_ported_raise(flag, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
+        port_cli(["train", "--ref_genome", "seq.fa", "--train_data",
+                  "sites.bed", *flag])
