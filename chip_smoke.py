@@ -2,6 +2,7 @@
 """Smoke run of mural_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--n_sites 200000] [--n_train 60000]
+    python3 chip_smoke.py --only_kernels
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -18,11 +19,14 @@ Phases (any failure raises and the script exits non-zero):
    (``F.conv1d`` on a prepared one-hot; a yardstick the port never
    calls) beside the kernel's bound;
 3. K2 (fused stem forward) and K3 (its backward) against their plain
-   versions at both towers' shapes, B in {128, 2048} and a ragged 37:
-   pooled within 1e-6 with identical ``jstar``, dtable within 1e-5 of its
-   largest entry, two K3 runs bit-identical; timings of kernel, plain
-   version and the library composition (``F.conv1d`` + ``F.max_pool1d``
-   on a prepared one-hot, and its autograd backward) beside the bounds;
+   versions at both towers' shapes, B in {128, 2048} and a ragged 37,
+   also with a random C=30 table (scalar channels, unaligned tile
+   edges) and a k=5 table at B 2048 and 37, and on rows of length 2001
+   with tower 2's pool: pooled within 1e-6 with identical ``jstar``, dtable within 1e-5
+   of its largest entry, two K3 runs bit-identical; timings of kernel,
+   plain version and the library composition (``F.conv1d`` +
+   ``F.max_pool1d`` on a prepared one-hot, and its autograd backward)
+   beside the bounds;
 4. the BN-folded fused forward (through K1) against the unfused SNVNet2
    on one batch of 4096 (<= 1e-4), and the card's unfused forward
    against the CPU's on a small batch (<= 1e-4);
@@ -43,7 +47,10 @@ Phases (any failure raises and the script exits non-zero):
 8. a JSON line of the kernels and a timing line.
 
 The last line of standard output is the device record
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+``{"ok": true, "device": {...}}``.  ``--only_kernels`` runs the setup
+(without the synthetic genome) and phases 2-3, prints the kernels' JSON
+line and exits 0 without the device record: a quick check of the
+kernels while they change.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints
 no result.  Scratch files go to ``build/chip_smoke/`` beside this script
 and are removed at the end.
@@ -336,14 +343,52 @@ def phase_k1(model, dev, gen):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def check_stem_case(name, codes, table, bias, pk, pp, gen):
+    """K2 and K3 against their plain versions on one stem call: K2 within
+    TOL_K2 with identical ``jstar``, K3 within TOL_K3_REL of max|dtable|
+    and bit-identical over two runs.  Returns (K2 error, K3 error, K3
+    relative error, g, jstar)."""
+    import torch
+    from mural_tpu_torch.ops import fused_train_stem as fts
+    k = table.shape[0]
+    pooled, jstar = fts.code_conv_pool_forward(codes, table, bias, pk, pp)
+    ref, ref_j = fts.code_conv_pool_reference(codes, table, bias, pk, pp)
+    g = torch.randn(pooled.shape, generator=gen).to(codes.device)
+    dt = fts.code_conv_pool_backward(codes, jstar, g, k, pk, pp)
+    dt2 = fts.code_conv_pool_backward(codes, jstar, g, k, pk, pp)
+    ref_dt = fts.code_conv_pool_backward_reference(codes, ref_j, g, k, pk,
+                                                   pp)
+    torch.cuda.synchronize()
+    e2 = (pooled - ref).abs().max().item()
+    same_j = torch.equal(jstar, ref_j)
+    e3 = (dt - ref_dt).abs().max().item()
+    r3 = e3 / ref_dt.abs().max().item()
+    same_dt = torch.equal(dt, dt2)
+    log(f"K2 {name}: max |kernel - plain| = {e2:.3g}, jstar "
+        f"{'identical' if same_j else 'DIFFERS'}; K3: max |kernel - plain| "
+        f"= {e3:.3g} ({r3:.3g} of max|dtable|), two runs "
+        f"{'bit-identical' if same_dt else 'DIFFER'}")
+    if not (e2 <= TOL_K2 and same_j and r3 <= TOL_K3_REL and same_dt):
+        raise AssertionError(f"K2/K3 disagree with their plain versions on "
+                             f"{name}")
+    return e2, e3, r3, g, jstar
+
+
 def phase_k2_k3(model, dev, gen):
     """K2 and K3 against their plain versions, and their timings beside
     the library composition and the bounds."""
     import torch
-    from mural_tpu_torch.ops import fused_train_stem as fts
     tables = [folded_stem(model.conv1_2), folded_stem(model.conv1)]
     k, _, C = tables[0][0].shape
-    err_k2 = err_k3 = rel_k3 = 0.0
+    # seeded random tables whose sentinel row 15 is zero: C=30 takes the
+    # kernels' scalar-channel path and unaligned tile edges, k=5 their
+    # path for a kernel size other than 3
+    extra = {}
+    for name, (kx, cx) in {"C=30": (k, 30), "k=5": (5, C)}.items():
+        t = torch.randn((kx, 16, cx), generator=gen)
+        t[:, 15] = 0.0
+        extra[name] = (t.to(dev), torch.randn(cx, generator=gen).to(dev))
+    errs = []
     timings = {}
     for B in (TRAIN_BATCH, 2048, 37):
         full = torch.randint(0, 15, (B, 401), generator=gen,
@@ -352,41 +397,32 @@ def phase_k2_k3(model, dev, gen):
         grads, jstars = [], []
         for (name, pk, pp), codes, (table, bias) in zip(STEMS, inputs,
                                                         tables):
-            pooled, jstar = fts.code_conv_pool_forward(codes, table, bias,
-                                                       pk, pp)
-            ref, ref_j = fts.code_conv_pool_reference(codes, table, bias,
-                                                      pk, pp)
-            g = torch.randn(pooled.shape, generator=gen).to(dev)
-            dt = fts.code_conv_pool_backward(codes, jstar, g, k, pk, pp)
-            dt2 = fts.code_conv_pool_backward(codes, jstar, g, k, pk, pp)
-            ref_dt = fts.code_conv_pool_backward_reference(codes, ref_j, g,
-                                                           k, pk, pp)
-            torch.cuda.synchronize()
-            e2 = (pooled - ref).abs().max().item()
-            same_j = torch.equal(jstar, ref_j)
-            e3 = (dt - ref_dt).abs().max().item()
-            r3 = e3 / ref_dt.abs().max().item()
-            same_dt = torch.equal(dt, dt2)
-            log(f"K2 {name} B={B}: max |kernel - plain| = {e2:.3g}, jstar "
-                f"{'identical' if same_j else 'DIFFERS'}; K3: max |kernel "
-                f"- plain| = {e3:.3g} ({r3:.3g} of max|dtable|), two runs "
-                f"{'bit-identical' if same_dt else 'DIFFER'}")
-            if not (e2 <= TOL_K2 and same_j and r3 <= TOL_K3_REL
-                    and same_dt):
-                raise AssertionError(f"K2/K3 disagree with their plain "
-                                     f"versions on {name}, B={B}")
-            err_k2, err_k3 = max(err_k2, e2), max(err_k3, e3)
-            rel_k3 = max(rel_k3, r3)
+            e2, e3, r3, g, jstar = check_stem_case(
+                f"{name} B={B}", codes, table, bias, pk, pp, gen)
+            errs.append((e2, e3, r3))
             grads.append(g)
             jstars.append(jstar)
+            if B != TRAIN_BATCH:
+                errs += [check_stem_case(f"{name} {what} B={B}", codes,
+                                         *tb, pk, pp, gen)[:3]
+                         for what, tb in extra.items()]
         if B == 37:
             continue
         timings[B] = time_stem(inputs, tables, grads, jstars, k)
         log(f"K2/K3 one train step at B={B}: " + json.dumps(timings[B]))
+    # a long row (L=2001) with tower 2's pool
+    long_rows = torch.randint(0, 15, (TRAIN_BATCH, 2001), generator=gen,
+                              dtype=torch.uint8).to(dev)
+    _, pk, pp = STEMS[0]
+    errs.append(check_stem_case(f"L=2001 pool {pk} B={TRAIN_BATCH}",
+                                long_rows, *tables[0], pk, pp, gen)[:3])
+    err_k2, err_k3, rel_k3 = (max(e) for e in zip(*errs))
     return {"max_abs_err_k2": err_k2, "max_abs_err_k3": err_k3,
             "max_rel_err_k3": rel_k3, "timings": timings,
             "bound_k2": k2_bound(TRAIN_BATCH, k, C),
-            "bound_k3": k3_bound(TRAIN_BATCH, k, C)}
+            "bound_k3": k3_bound(TRAIN_BATCH, k, C),
+            "bound_k2_b2048": k2_bound(2048, k, C),
+            "bound_k3_b2048": k3_bound(2048, k, C)}
 
 
 def time_stem(inputs, tables, grads, jstars, k):
@@ -784,11 +820,57 @@ def phase_train_cli(work, fasta, bed, n_train, cuda_id):
     return run, off
 
 
+def kernel_records(k1, k23, k1_launches, train_on):
+    """The kernels' JSON records from phases 2-3; ``launches`` come from
+    the main path's runs (None when it did not run)."""
+    per_step = (f"one train step: B={TRAIN_BATCH} at L=401 (pool 15) and "
+                f"the L=201 crop (pool 3)")
+    t128 = k23["timings"][TRAIN_BATCH]
+    kernels = [{
+        "name": "code_conv1d", "route": "cuda",
+        "source": "mural_tpu_torch/ops/csrc/code_conv1d.cu",
+        "replaces": "mural_tpu/ops/fused_code_conv.py:115",
+        "launches": k1_launches,
+        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
+        "call_ms": k1["call_ms"], "plain_call_ms": k1["plain_call_ms"],
+        "library_call_ms": k1["library_call_ms"],
+        "per": f"one predict batch: B={BATCH} at L=401 and the L=201 crop",
+    }, {
+        "name": "code_conv_pool_fwd", "route": "cuda",
+        "source": "mural_tpu_torch/ops/csrc/code_conv_pool.cu",
+        "replaces": "mural_tpu/ops/fused_train_stem.py:339",
+        "launches": train_on and train_on["k2"],
+        "max_abs_err": k23["max_abs_err_k2"], "ms": t128["k2_ms"],
+        "plain_ms": t128["k2_plain_ms"], "bound_ms": k23["bound_k2"][0],
+        "bound_by": k23["bound_k2"][1], "library_ms": t128["k2_library_ms"],
+        "call_ms": t128["k2_call_ms"], "per": per_step,
+        "bound_ms_b2048": k23["bound_k2_b2048"][0], "at_b128": t128, "at_b2048": k23["timings"][2048],
+    }, {
+        "name": "code_conv_pool_bwd", "route": "cuda",
+        "source": "mural_tpu_torch/ops/csrc/code_conv_pool.cu",
+        "replaces": "mural_tpu/ops/fused_train_stem.py:375",
+        "launches": train_on and train_on["k3"],
+        "max_abs_err": k23["max_abs_err_k3"],
+        "max_rel_err": k23["max_rel_err_k3"], "ms": t128["k3_ms"],
+        "plain_ms": t128["k3_plain_ms"], "bound_ms": k23["bound_k3"][0],
+        "bound_by": k23["bound_k3"][1], "library_ms": t128["k3_library_ms"],
+        "call_ms": t128["k3_call_ms"], "per": per_step,
+        "bound_ms_b2048": k23["bound_k3_b2048"][0], "at_b128": t128, "at_b2048": k23["timings"][2048],
+    }]
+    return kernels
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n_sites", type=int, default=200_000)
     ap.add_argument("--n_train", type=int, default=60_000)
+    ap.add_argument("--only_kernels", action="store_true",
+                    help="setup and phases 2-3 only, then the kernels' "
+                         "JSON line; no device record (for iterating on "
+                         "the kernels)")
     args = ap.parse_args(argv)
 
     import torch
@@ -822,8 +904,9 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator().manual_seed(args.seed)
     t0 = time.perf_counter()
-    fasta, bed, train_bed = write_inputs(work, rng, args.n_sites,
-                                         args.n_train)
+    if not args.only_kernels:
+        fasta, bed, train_bed = write_inputs(work, rng, args.n_sites,
+                                             args.n_train)
     model_path, model = write_checkpoint(work, args.seed)
     log(f"synthetic inputs and checkpoint in {time.perf_counter() - t0:.2f}"
         f" s ({args.n_sites} sites to predict, {args.n_train} to train)")
@@ -838,6 +921,13 @@ def main(argv=None) -> int:
     # 2-3. kernels vs plain
     k1 = timed("k1", phase_k1, model.to(dev).eval(), dev, gen)
     k23 = timed("k2_k3", phase_k2_k3, model, dev, gen)
+    if args.only_kernels:
+        shutil.rmtree(work, ignore_errors=True)
+        log(json.dumps({"kernels": kernel_records(k1, k23, None, None)}))
+        log(json.dumps({"card": card, "build_s": t_build,
+                        "phase_s": phase_s,
+                        "total_s": time.perf_counter() - t_start}))
+        return 0
     # 4-5. model and train step on the card
     model_err, fwd_ms = timed("model", phase_model, model, dev, gen)
     step_rel, step_rel_cpu, step_timing = timed(
@@ -851,42 +941,8 @@ def main(argv=None) -> int:
     shutil.rmtree(work, ignore_errors=True)
 
     # 8. results
-    per_step = (f"one train step: B={TRAIN_BATCH} at L=401 (pool 15) and "
-                f"the L=201 crop (pool 3)")
-    t128 = k23["timings"][TRAIN_BATCH]
-    kernels = [{
-        "name": "code_conv1d", "route": "cuda",
-        "source": "mural_tpu_torch/ops/csrc/code_conv1d.cu",
-        "replaces": "mural_tpu/ops/fused_code_conv.py:115",
-        "launches": fused["launches"],
-        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
-        "call_ms": k1["call_ms"], "plain_call_ms": k1["plain_call_ms"],
-        "library_call_ms": k1["library_call_ms"],
-        "per": f"one predict batch: B={BATCH} at L=401 and the L=201 crop",
-    }, {
-        "name": "code_conv_pool_fwd", "route": "cuda",
-        "source": "mural_tpu_torch/ops/csrc/code_conv_pool.cu",
-        "replaces": "mural_tpu/ops/fused_train_stem.py:339",
-        "launches": train_on["k2"],
-        "max_abs_err": k23["max_abs_err_k2"], "ms": t128["k2_ms"],
-        "plain_ms": t128["k2_plain_ms"], "bound_ms": k23["bound_k2"][0],
-        "bound_by": k23["bound_k2"][1], "library_ms": t128["k2_library_ms"],
-        "call_ms": t128["k2_call_ms"], "per": per_step,
-        "at_b128": t128, "at_b2048": k23["timings"][2048],
-    }, {
-        "name": "code_conv_pool_bwd", "route": "cuda",
-        "source": "mural_tpu_torch/ops/csrc/code_conv_pool.cu",
-        "replaces": "mural_tpu/ops/fused_train_stem.py:375",
-        "launches": train_on["k3"],
-        "max_abs_err": k23["max_abs_err_k3"],
-        "max_rel_err": k23["max_rel_err_k3"], "ms": t128["k3_ms"],
-        "plain_ms": t128["k3_plain_ms"], "bound_ms": k23["bound_k3"][0],
-        "bound_by": k23["bound_k3"][1], "library_ms": t128["k3_library_ms"],
-        "call_ms": t128["k3_call_ms"], "per": per_step,
-    }]
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernel_records(
+        k1, k23, fused["launches"], train_on)}))
     log(json.dumps({
         "card": card, "build_s": t_build,
         "model_max_abs_err": model_err, **fwd_ms,

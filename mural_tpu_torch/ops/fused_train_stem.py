@@ -28,6 +28,9 @@ PyTorch versions :func:`code_conv_pool_reference` and
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from mural_tpu_torch.device import constant
@@ -43,15 +46,27 @@ FWD_LAUNCHES = 0          # K2
 BWD_LAUNCHES = 0          # K3 (with its partial-sum reduce)
 
 LIBRARY = KernelLibrary("code_conv_pool", {
+    # codes, row stride, table, bias, pooled, jstar, B, L, k, C, pk, pp,
+    # P, then the plan: rows, p_tile, windows, grid, threads, smem; stream
     "code_conv_pool_fwd_launch": [PTR, I64, PTR, PTR, PTR, PTR, INT, INT,
-                                  INT, INT, INT, INT, INT, PTR],
+                                  INT, INT, INT, INT, INT, INT, INT, INT,
+                                  INT, INT, I64, PTR],
+    # codes, row stride, jstar, g, partial, dtable, B, L, k, C, pk, pp, P,
+    # then the plan: rows, p_tile, groups, threads, grid, smem; stream
     "code_conv_pool_bwd_launch": [PTR, I64, PTR, PTR, PTR, PTR, INT, INT,
-                                  INT, INT, INT, INT, INT, INT, PTR],
+                                  INT, INT, INT, INT, INT, INT, INT, INT,
+                                  INT, INT, I64, PTR],
 })
-# K3 splits the (b, p) pairs over at most this many blocks (two per SM of
-# an H100), at least 128 pairs each
-MAX_BWD_BLOCKS = 264
-MIN_PAIRS_PER_BLOCK = 128
+# The card the launch plan fills: an H100's SMs and the shared memory one
+# block may use; threads of a K2 block and of a K3 block's slab groups
+NUM_SMS = 132
+MAX_SMEM = 232_448
+MAX_THREADS = 256
+# pieces (blocks of K2) a call aims at when B is large: a few per SM
+TARGET_BLOCKS = 4 * NUM_SMS
+# K3 blocks per SM: each walks several pieces into its slabs, so a call
+# writes at most this many partials per SM for the reduce
+BWD_BLOCKS_PER_SM = 2
 
 
 def pool_out_len(L: int, pk: int, pp: int) -> int:
@@ -140,6 +155,110 @@ def _check_pool(pk: int, pp: int):
                          f"0 <= pp <= pk/2, got pk={pk}, pp={pp}")
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _smem_bytes(k, C, R, TP, pk, groups, backward) -> int:
+    """Shared memory of one block (the ``Layout`` of code_conv_pool.cu).
+    K2: table and bias, the (R, C, TP) float32 and uint8 output tiles
+    (each with room to shift by its misalignment); K3: the slabs and the
+    g and jstar tiles as R*C segments with room for a 16-byte cover; both:
+    each row's raw code span and its ext codes."""
+    n, n_ext = R * C * TP, TP * pk + k - 1
+    slab = k * NCODES * C
+    if backward:
+        head = 4 * groups * slab + R * C * (_round_up(4 * TP + 15, 16)
+                                            + _round_up(TP + 15, 16))
+    else:
+        head = (4 * (slab + _round_up(C, 4)) + 4 * _round_up(n + 4, 4)
+                + _round_up(n + 16, 16))
+    return head + R * (_round_up(n_ext + 15, 16) + n_ext)
+
+
+@dataclasses.dataclass(frozen=True)
+class StemPlan:
+    """Launch plan of K2 (forward) or K3 (backward) on one stem call.
+
+    Piece ``rb * n_ptiles + pt`` is rows ``[rb*rows, (rb+1)*rows)`` and
+    pool windows ``[pt*p_tile, (pt+1)*p_tile)``, both clipped to ``B`` and
+    ``P``.  K2 runs one block per piece, and a thread owns ``vec``
+    adjacent channels of a run of ``windows`` windows of one row.  K3 runs
+    ``grid`` blocks, block ``i`` walking pieces ``i, i + grid, ...``, with
+    ``groups`` slabs of ``threads // groups`` threads each; a group walks
+    a fixed run of each piece's (row, window) pairs."""
+    B: int
+    P: int
+    rows: int
+    p_tile: int
+    n_ptiles: int
+    n_pieces: int
+    grid: int
+    vec: int
+    threads: int
+    windows: int
+    groups: int
+    smem: int
+
+    def pieces(self):
+        """``(b0, b1, p0, p1)`` of each piece, in piece order."""
+        for i in range(self.n_pieces):
+            rb, pt = divmod(i, self.n_ptiles)
+            yield (rb * self.rows, min(self.B, (rb + 1) * self.rows),
+                   pt * self.p_tile, min(self.P, (pt + 1) * self.p_tile))
+
+
+@functools.lru_cache(maxsize=256)
+def stem_launch_plan(B: int, L: int, k: int, C: int, pk: int, pp: int,
+                     backward: bool = False) -> StemPlan:
+    """How K2 or K3 cuts one call over the card: whole rows per piece
+    (``ceil(B / TARGET_BLOCKS)``, fewer where shared memory runs out),
+    and P-tiles when the rows alone give fewer pieces than SMs or one row
+    does not fit."""
+    _check_pool(pk, pp)
+    P = max(pool_out_len(L, pk, pp), 0)
+    vec = 4 if C % 4 == 0 else 1
+    lanes = min(C, MAX_THREADS)          # K3 threads of one slab group
+
+    def bwd_shape(R, TP):
+        """K3's (grid, groups) for pieces of R rows and TP windows: as
+        many slab groups as fit the block's threads, at most one per
+        (row, window) pair a block walks."""
+        n = -(-B // R) * -(-P // TP)
+        grid = min(n, BWD_BLOCKS_PER_SM * NUM_SMS)
+        return grid, min(MAX_THREADS // lanes, -(-n // grid) * R * TP)
+
+    def smem(R, TP):
+        groups = bwd_shape(R, TP)[1] if backward else 0
+        return _smem_bytes(k, C, R, TP, pk, groups, backward)
+
+    if B <= 0 or P == 0:
+        return StemPlan(B, P, 1, 1, 1, 0, 0, vec, 0, 1, 1, 0)
+    R = min(B, -(-B // TARGET_BLOCKS))
+    while R > 1 and smem(R, P) > MAX_SMEM:
+        R -= 1
+    n_rb = -(-B // R)
+    n_pt = 1 if n_rb >= NUM_SMS else min(P, -(-NUM_SMS // n_rb))
+    while n_pt < P and smem(R, -(-P // n_pt)) > MAX_SMEM:
+        n_pt += 1
+    TP = -(-P // n_pt)
+    n_pt = -(-P // TP)
+    if smem(R, TP) > MAX_SMEM:
+        raise ValueError(f"code_conv_pool: k={k}, C={C} needs more shared "
+                         f"memory than a block has ({smem(R, TP)} bytes)")
+    if backward:
+        grid, G = bwd_shape(R, TP)
+        threads, W = G * lanes, 0
+    else:
+        grid, G = n_rb * n_pt, 0
+        per_run = R * (C // vec)
+        nw = max(1, min(TP, MAX_THREADS // per_run))
+        W = -(-TP // nw)
+        threads = min(MAX_THREADS, _round_up(per_run * -(-TP // W), 32))
+    return StemPlan(B, P, R, TP, n_pt, n_rb * n_pt, grid, vec, threads, W,
+                    G, smem(R, TP))
+
+
 def _fwd_kernel(codes, table, bias, pk, pp):
     check_stem_args(codes, table, bias, "code_conv_pool")
     B, L = codes.shape
@@ -147,22 +266,21 @@ def _fwd_kernel(codes, table, bias, pk, pp):
     P = pool_out_len(L, pk, pp)
     pooled = torch.empty((B, C, P), dtype=torch.float32, device=codes.device)
     jstar = torch.empty((B, C, P), dtype=torch.uint8, device=codes.device)
+    plan = stem_launch_plan(B, L, k, C, pk, pp)
+    if plan.grid == 0:
+        return pooled, jstar
     lib = LIBRARY.load()
     with torch.cuda.device(codes.device):
         err = lib.code_conv_pool_fwd_launch(
             codes.data_ptr(), codes.stride(0), table.data_ptr(),
             bias.data_ptr(), pooled.data_ptr(), jstar.data_ptr(), B, L, k,
-            C, pk, pp, P, current_stream(codes))
+            C, pk, pp, P, plan.rows, plan.p_tile, plan.windows, plan.grid,
+            plan.threads, plan.smem, current_stream(codes))
     check_launch(err, f"code_conv_pool forward (B={B}, L={L}, k={k}, "
                       f"C={C}, pk={pk})")
     global FWD_LAUNCHES
     FWD_LAUNCHES += 1
     return pooled, jstar
-
-
-def bwd_blocks(B: int, P: int) -> int:
-    """K3's block count for ``B * P`` (b, p) pairs."""
-    return max(1, min(MAX_BWD_BLOCKS, -(-B * P // MIN_PAIRS_PER_BLOCK)))
 
 
 def _bwd_kernel(codes, jstar, g, k, pk, pp):
@@ -173,13 +291,17 @@ def _bwd_kernel(codes, jstar, g, k, pk, pp):
             and tuple(jstar.shape) == (B, C, P)
             and codes.dtype == torch.uint8 and codes.dim() == 2
             and codes.shape[0] == B and codes.stride(1) == 1
+            and P == pool_out_len(L, pk, pp)
             and g.device == codes.device == jstar.device):
         raise TypeError("code_conv_pool backward: need (B, L) uint8 codes "
                         "with unit column stride, and contiguous float32 g "
-                        "and uint8 jstar of one (B, C, P) shape, all on one "
-                        "device")
-    n_blocks = bwd_blocks(B, P)
-    partial = torch.empty((n_blocks, k * NCODES * C), dtype=torch.float32,
+                        "and uint8 jstar of one (B, C, P) shape, P the "
+                        "pool's output length, all on one device")
+    plan = stem_launch_plan(B, L, k, C, pk, pp, backward=True)
+    if plan.grid == 0:
+        return torch.zeros((k, NCODES, C), dtype=torch.float32,
+                           device=g.device)
+    partial = torch.empty((plan.grid, k * NCODES * C), dtype=torch.float32,
                           device=g.device)
     dtable = torch.empty((k, NCODES, C), dtype=torch.float32, device=g.device)
     lib = LIBRARY.load()
@@ -187,7 +309,8 @@ def _bwd_kernel(codes, jstar, g, k, pk, pp):
         err = lib.code_conv_pool_bwd_launch(
             codes.data_ptr(), codes.stride(0), jstar.data_ptr(),
             g.data_ptr(), partial.data_ptr(), dtable.data_ptr(), B, L, k, C,
-            pk, pp, P, n_blocks, current_stream(g))
+            pk, pp, P, plan.rows, plan.p_tile, plan.groups, plan.threads,
+            plan.grid, plan.smem, current_stream(g))
     check_launch(err, f"code_conv_pool backward (B={B}, L={L}, k={k}, "
                       f"C={C}, pk={pk})")
     global BWD_LAUNCHES
