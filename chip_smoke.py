@@ -13,11 +13,15 @@ Phases (any failure raises and the script exits non-zero):
    triple with the port itself: SNVNet2 at the CLI default widths with
    seeded weights, randomised BN statistics and a seeded FullDirichlet
    calibrator;
-2. K1 against its plain PyTorch version on the card at the predict
-   path's shapes (max |diff| <= 1e-5), with timings of the kernel, the
-   plain version and one library call computing the same function
-   (``F.conv1d`` on a prepared one-hot; a yardstick the port never
-   calls) beside the kernel's bound;
+2. K1 against its plain PyTorch version on the card, bit-exact (max
+   |diff| == 0): the predict path's shapes (B=4096 at L=401 and the
+   strided L=201 crop), the same at B=256 and a ragged 37, rows of
+   length 2001, and seeded random tables with C=30 (scalar channels),
+   k=5 and C=8 with k=7 (an INDEL-like stem) at B 4096 and 37; timings
+   per predict batch (both towers' calls) at B=4096 and B=256 of the
+   kernel, the plain version and one library call computing the same
+   function (``F.conv1d`` on a prepared one-hot; a yardstick the port
+   never calls) beside the kernel's bound;
 3. K2 (fused stem forward) and K3 (its backward) against their plain
    versions at both towers' shapes, B in {128, 2048} and a ragged 37,
    also with a random C=30 table (scalar channels, unaligned tile
@@ -29,7 +33,9 @@ Phases (any failure raises and the script exits non-zero):
    beside the bounds;
 4. the BN-folded fused forward (through K1) against the unfused SNVNet2
    on one batch of 4096 (<= 1e-4), and the card's unfused forward
-   against the CPU's on a small batch (<= 1e-4);
+   against the CPU's on a small batch (<= 1e-4); the top 8 device ops
+   of one fused forward at B=4096 from torch.profiler (name, ms, calls)
+   and the op that follows each K1 launch;
 5. train steps at the CLI default widths, dropout 0: five Adam steps of
    128 with the fused stem (K2/K3) against the unfused model (per-step
    loss within 1e-4), two unfused steps of 16 on the card against the
@@ -80,7 +86,7 @@ import numpy as np
 # float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
-TOL_KERNEL = 1e-5       # K1 vs plain: both sum the same f32 terms in order
+TOL_LIBRARY = 1e-5      # F.conv1d yardsticks vs the kernels: cuDNN's order
 TOL_K2 = 1e-6           # K2 vs plain: the same f32 sums in the same order
 TOL_K3_REL = 1e-5       # K3 vs plain (index_add_ on the card: atomics)
 TOL_MODEL = 1e-4        # folded vs unfused forward: f32 reassociation
@@ -284,43 +290,78 @@ def one_hot16(codes, k):
     return F.one_hot(padded, 16).float().transpose(1, 2).contiguous()
 
 
-def phase_k1(model, dev, gen):
-    """K1 against its plain version and the library yardstick."""
+def random_table(gen, k, C, dev):
+    """A seeded (k, 16, C) table whose sentinel row 15 is zero, and a
+    (C,) bias."""
     import torch
-    import torch.nn.functional as F
+    t = torch.randn((k, 16, C), generator=gen)
+    t[:, 15] = 0.0
+    return t.to(dev), torch.randn(C, generator=gen).to(dev)
+
+
+def random_codes(gen, B, L, dev):
+    import torch
+    return torch.randint(0, 15, (B, L), generator=gen,
+                         dtype=torch.uint8).to(dev)
+
+
+def phase_k1(model, dev, gen):
+    """K1 against its plain version (bit-exact) and its timings beside the
+    plain version, the library yardstick and the bound."""
+    import torch
     from mural_tpu_torch.ops import fused_code_conv as fcc
     table, bias = folded_stem(model.conv1_2)
     k, _, C = table.shape
-    full = torch.randint(0, 15, (BATCH, 401), generator=gen,
-                         dtype=torch.uint8).to(dev)
-    ragged = torch.randint(0, 15, (37, 401), generator=gen,
-                           dtype=torch.uint8).to(dev)
-    crop = full[:, 100:301]                     # tower 1: strided view
-    cases = {f"{BATCH}x401": full, f"{BATCH}x201 crop": crop,
-             "37x401": ragged}
+    full = random_codes(gen, BATCH, 401, dev)
+    ragged = random_codes(gen, 37, 401, dev)
+    small = full[:256]
+    tables = {"": (table, bias)}
+    # C=30 takes the kernel's scalar-channel path, k=5 and k=7 its path
+    # for a kernel size other than 3
+    for name, (kx, cx) in {" C=30": (k, 30), " k=5": (5, C),
+                           " C=8 k=7": (7, 8)}.items():
+        tables[name] = random_table(gen, kx, cx, dev)
+    cases = [(f"{B}x401", codes, "") for B, codes in
+             ((BATCH, full), (256, small), (37, ragged))]
+    # tower 1's crop: a strided view (row stride 401, offset 100)
+    cases += [(f"{B}x201 crop", codes[:, 100:301], "") for B, codes in
+              ((BATCH, full), (256, small), (37, ragged))]
+    cases.append(("256x2001", random_codes(gen, 256, 2001, dev), ""))
+    cases += [(f"{B}x{what}{name}", codes, name) for name in list(tables)[1:]
+              for B, what, codes in ((BATCH, "401", full),
+                                     (BATCH, "201 crop", full[:, 100:301]),
+                                     (37, "401", ragged))]
     err = 0.0
-    for name, codes in cases.items():
-        out = fcc.code_conv1d(codes, table, bias)
-        ref = fcc.code_conv1d_reference(codes, table, bias)
+    for name, codes, tname in cases:
+        out = fcc.code_conv1d(codes, *tables[tname])
+        ref = fcc.code_conv1d_reference(codes, *tables[tname])
         torch.cuda.synchronize()
         e = (out - ref).abs().max().item()
         log(f"K1 {name}: max |kernel - plain| = {e:.3g}")
-        if not e <= TOL_KERNEL:
-            raise AssertionError(f"K1 disagrees with its plain version on "
-                                 f"{name}: {e} > {TOL_KERNEL}")
+        if not e == 0:
+            raise AssertionError(f"K1 differs from its plain version on "
+                                 f"{name}: max |diff| {e}")
         err = max(err, e)
+    return {**time_k1(full, table, bias, k, C), "max_abs_err": err,
+            "at_b256": time_k1(small, table, bias, k, C)}
 
+
+def time_k1(full, table, bias, k, C):
+    """K1, its plain version and the library yardstick on one predict
+    batch of ``full``: its L=401 rows and their L=201 crop."""
+    import torch.nn.functional as F
+    from mural_tpu_torch.ops import fused_code_conv as fcc
+    crop = full[:, 100:301]
     # the library yardstick: one conv over a prepared 16-channel one-hot
     weight = table.permute(2, 1, 0).contiguous()            # (C, 16, k)
     oh_full, oh_crop = one_hot16(full, k), one_hot16(crop, k)
-    lib = F.conv1d(oh_full, weight, bias)
-    e_lib = (lib.transpose(1, 2) - fcc.code_conv1d(full, table, bias)
-             ).abs().max().item()
-    log(f"K1 vs F.conv1d yardstick: max |diff| = {e_lib:.3g}")
-    if not e_lib <= TOL_KERNEL:
+    e_lib = (F.conv1d(oh_full, weight, bias).transpose(1, 2)
+             - fcc.code_conv1d(full, table, bias)).abs().max().item()
+    log(f"K1 vs F.conv1d yardstick (B={len(full)}): max |diff| = "
+        f"{e_lib:.3g}")
+    if not e_lib <= TOL_LIBRARY:
         raise AssertionError(f"F.conv1d yardstick disagrees: {e_lib}")
 
-    # one predict batch runs K1 on both towers' shapes
     def batch_kernel():
         fcc.code_conv1d(full, table, bias)
         fcc.code_conv1d(crop, table, bias)
@@ -333,14 +374,16 @@ def phase_k1(model, dev, gen):
         F.conv1d(oh_full, weight, bias)
         F.conv1d(oh_crop, weight, bias)
 
-    bound_ms, bound_by = k1_bound([(BATCH, 401), (BATCH, 201)], k, C)
-    return {"max_abs_err": err, "ms": device_ms(batch_kernel),
-            "plain_ms": device_ms(batch_plain),
-            "library_ms": device_ms(batch_library),
-            "call_ms": cuda_ms(batch_kernel),
-            "plain_call_ms": cuda_ms(batch_plain),
-            "library_call_ms": cuda_ms(batch_library),
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    B = len(full)
+    bound_ms, bound_by = k1_bound([(B, 401), (B, 201)], k, C)
+    out = {"ms": device_ms(batch_kernel), "plain_ms": device_ms(batch_plain),
+           "library_ms": device_ms(batch_library),
+           "call_ms": cuda_ms(batch_kernel),
+           "plain_call_ms": cuda_ms(batch_plain),
+           "library_call_ms": cuda_ms(batch_library),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"K1 one predict batch at B={B}: " + json.dumps(out))
+    return out
 
 
 def check_stem_case(name, codes, table, bias, pk, pp, gen):
@@ -383,11 +426,8 @@ def phase_k2_k3(model, dev, gen):
     # seeded random tables whose sentinel row 15 is zero: C=30 takes the
     # kernels' scalar-channel path and unaligned tile edges, k=5 their
     # path for a kernel size other than 3
-    extra = {}
-    for name, (kx, cx) in {"C=30": (k, 30), "k=5": (5, C)}.items():
-        t = torch.randn((kx, 16, cx), generator=gen)
-        t[:, 15] = 0.0
-        extra[name] = (t.to(dev), torch.randn(cx, generator=gen).to(dev))
+    extra = {name: random_table(gen, kx, cx, dev)
+             for name, (kx, cx) in {"C=30": (k, 30), "k=5": (5, C)}.items()}
     errs = []
     timings = {}
     for B in (TRAIN_BATCH, 2048, 37):
@@ -447,7 +487,7 @@ def time_stem(inputs, tables, grads, jstars, k):
                               return_indices=True)
         ref, _ = fts.code_conv_pool_forward(codes, table, bias, pk, pp)
         e = (out - ref).abs().max().item()
-        if not e <= TOL_KERNEL:
+        if not e <= TOL_LIBRARY:
             raise AssertionError(f"library composition disagrees: {e}")
         lib.append((oh, w, b, out, g))
     fns = {
@@ -505,8 +545,38 @@ def phase_model(model, dev, gen):
             "fused_forward_ms": cuda_ms(
                 lambda: snv2_fused_forward(folded, cat, codes), iters=10),
             "unfused_forward_ms": cuda_ms(
-                lambda: model(cat, one_hot_from_codes(codes)), iters=10)}
+                lambda: model(cat, one_hot_from_codes(codes)), iters=10),
+            "fused_forward_trace": forward_trace(
+                lambda: snv2_fused_forward(folded, cat, codes))}
     return max(e, e_cpu), fwd_ms
+
+
+def forward_trace(fn, top=8):
+    """The device ops of one call of ``fn`` (a fused forward) from
+    torch.profiler: their summed device ms, the ``top`` ops by time
+    (name, ms, calls), and the op that runs after each K1 launch (what
+    reads K1's output, and whether a copy does)."""
+    events = device_events(fn)
+    by_name = {}
+    for name, _, us in events:
+        ms, calls = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + us / 1e3, calls + 1)
+    ops = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    trace = {
+        "device_ms": sum(us for _, _, us in events) / 1e3,
+        "top": [{"name": name[:160], "ms": ms, "calls": calls}
+                for name, (ms, calls) in ops],
+        "after_k1": [{"name": events[i + 1][0][:160],
+                      "ms": events[i + 1][2] / 1e3}
+                     for i, (name, _, _) in enumerate(events[:-1])
+                     if "code_conv1d_kernel" in name]}
+    log(f"fused forward (B={BATCH}), one call: {trace['device_ms']:.4f} ms "
+        f"of device ops; the top {top} by time:")
+    for op in trace["top"]:
+        log(f"  {op['ms']:.4f} ms  {op['calls']:3d} calls  {op['name']}")
+    for op in trace["after_k1"]:
+        log(f"  after K1: {op['ms']:.4f} ms  {op['name']}")
+    return trace
 
 
 def train_batches(gen, n, B):
@@ -603,16 +673,27 @@ def phase_train_step(dev, seed):
     return max(rel), rel_cpu, timing
 
 
-def device_busy_ms(fn) -> float:
-    """Summed duration of the device events (kernels and copies) that
-    torch.profiler records while ``fn`` runs; 0 when it records none."""
+def device_events(fn):
+    """(name, start us, duration us) of each device event (kernels and
+    copies) that torch.profiler records while ``fn`` runs, in start
+    order; ``fn`` ends in a synchronise or the caller's next one."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3
+        torch.cuda.synchronize()
+    return sorted(((e.name, e.time_range.start, e.time_range.elapsed_us())
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e[1])
+
+
+def device_busy_ms(fn) -> float:
+    """Summed duration of the device events (kernels and copies) that
+    torch.profiler records while ``fn`` runs; 0 when it records none."""
+    return sum(us for _, _, us in device_events(fn)) / 1e3
 
 
 def read_tsv(path):
@@ -837,6 +918,7 @@ def kernel_records(k1, k23, k1_launches, train_on):
         "call_ms": k1["call_ms"], "plain_call_ms": k1["plain_call_ms"],
         "library_call_ms": k1["library_call_ms"],
         "per": f"one predict batch: B={BATCH} at L=401 and the L=201 crop",
+        "at_b256": k1["at_b256"],
     }, {
         "name": "code_conv_pool_fwd", "route": "cuda",
         "source": "mural_tpu_torch/ops/csrc/code_conv_pool.cu",

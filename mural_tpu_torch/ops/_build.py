@@ -4,8 +4,9 @@ Each kernel source under ``csrc/`` has a plain C interface.  At first
 use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library in
 ``build/kernels/`` at the root of the checkout and loaded with
 ``ctypes``; the library is rebuilt when it is missing or older than its
-source.  Nothing here runs at import time, so CPU-only machines import
-the kernel modules freely.
+source or one of the headers (``csrc/*.cuh``) the sources share.
+Nothing here runs at import time, so CPU-only machines import the kernel
+modules freely.
 """
 
 from __future__ import annotations
@@ -48,8 +49,9 @@ class KernelLibrary:
             if self._lib is not None:
                 return self._lib
             so = BUILD_DIR / f"lib{self.name}.so"
-            if (not so.exists()
-                    or so.stat().st_mtime < self.source.stat().st_mtime):
+            newest = max(p.stat().st_mtime
+                         for p in (self.source, *CSRC.glob("*.cuh")))
+            if not so.exists() or so.stat().st_mtime < newest:
                 self.build_log = self._build(so)
             lib = ctypes.CDLL(str(so))
             for fn, argtypes in self.signatures.items():

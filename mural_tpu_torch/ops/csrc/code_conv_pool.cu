@@ -68,19 +68,11 @@
 // Built with nvcc into a shared library with a plain C entry point and
 // loaded through ctypes (mural_tpu_torch/ops/fused_train_stem.py).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "stem.cuh"
 
 namespace {
 
-constexpr int kCodes = 16;
-constexpr int kSentinel = 15;
-constexpr int kMaxSmem = 227 * 1024;
 constexpr int kRedWarps = 32;          // warps per reduce block
-
-__host__ __device__ inline long long round_up(long long x, long long m) {
-  return (x + m - 1) / m * m;
-}
 
 // Shared-memory layout of one block, in bytes; the same formula as
 // _smem_bytes in fused_train_stem.py (the launchers check that they agree).
@@ -112,43 +104,6 @@ struct Layout {
     total = ext + (long long)R * n_ext;
   }
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ int low4(const void* p) {
-  return (int)(reinterpret_cast<uintptr_t>(p) & 15);
-}
-
-// Start cp.async copies of the 16-byte aligned chunks that cover each of
-// nseg byte segments [src + s*src_stride, + nbytes): segment s lands at
-// dst + s*dst_stride + low4(its start), dst and dst_stride 16-byte
-// aligned.  A chunk reaches at most 15 bytes past an end of its segment,
-// and never past the aligned 16-byte block that holds a byte of it, so
-// never outside the segment's allocation.  The caller waits
-// (cp_async_wait_all) and synchronises.
-__device__ void load_cover(unsigned char* dst, long long dst_stride,
-                           const unsigned char* src, long long src_stride,
-                           int nseg, long long nbytes) {
-  if (nbytes <= 0) return;
-  const long long cps = (nbytes + 30) / 16;        // chunks per segment
-  for (long long q = threadIdx.x; q < nseg * cps; q += blockDim.x) {
-    const long long s = q / cps;
-    const long long j = q - s * cps;
-    const uintptr_t p = reinterpret_cast<uintptr_t>(src + s * src_stride);
-    const uintptr_t a = (p & ~(uintptr_t)15) + 16 * j;
-    if (a < p + nbytes)
-      cp_async16(dst + s * dst_stride + 16 * j,
-                 reinterpret_cast<const void*>(a));
-  }
-}
 
 // The reverse for one run: dst[e] (device memory) = src[sh + e] for the
 // n elements of a run, sh = dst's misalignment in elements, src 16-byte
@@ -207,60 +162,11 @@ struct CodeRows {
   }
 };
 
-template <int V>
-__device__ __forceinline__ void add_row(float* acc, const float* row) {
-  if constexpr (V == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(row);
-    acc[0] = acc[0] + t.x;
-    acc[1] = acc[1] + t.y;
-    acc[2] = acc[2] + t.z;
-    acc[3] = acc[3] + t.w;
-  } else {
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[v] = acc[v] + row[v];
-  }
-}
-
-// The conv at pool-padded positions of one row for V channels.  With
-// K > 0 (k == K known at compile time) the window's codes live in
-// registers and each position reads one new code byte; with K == 0 the
-// taps read the staged codes.
-template <int V, int K>
-struct Taps {
-  int e[K > 1 ? K : 1];
-
-  __device__ __forceinline__ void start(const uint8_t* ext, int pos) {
-#pragma unroll
-    for (int t = 0; t + 1 < K; ++t) e[t] = ext[pos + t];
-  }
-
-  // acc = ((0 + T[0]) + T[1]) + ... + bias: the plain version's order
-  __device__ __forceinline__ void conv(const uint8_t* ext, int pos,
-                                       const float* tab, int C, int k,
-                                       const float* bv, float* acc) {
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[v] = 0.f;
-    if constexpr (K > 0) {
-      e[K - 1] = ext[pos + K - 1];
-#pragma unroll
-      for (int kk = 0; kk < K; ++kk)
-        add_row<V>(acc, tab + (kk * kCodes + e[kk]) * C);
-#pragma unroll
-      for (int t = 0; t + 1 < K; ++t) e[t] = e[t + 1];
-    } else {
-      for (int kk = 0; kk < k; ++kk)
-        add_row<V>(acc, tab + (kk * kCodes + ext[pos + kk]) * C);
-    }
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[v] = acc[v] + bv[v];
-  }
-};
-
 // Block blockIdx.x = rb * n_pt + pt owns rows [rb*R, rb*R + R) and
 // windows [pt*TP, pt*TP + TP) (clipped to B and P); a thread owns V
 // channels of a run of W windows of one row.
 template <int V, int K>
-__global__ void __launch_bounds__(256) code_conv_pool_fwd_kernel(
+__global__ void __launch_bounds__(kMaxThreads) code_conv_pool_fwd_kernel(
     const uint8_t* __restrict__ codes, long long row_stride,
     const float* __restrict__ table, const float* __restrict__ bias,
     float* __restrict__ pooled, uint8_t* __restrict__ jstar, int B, int L,
@@ -282,12 +188,7 @@ __global__ void __launch_bounds__(256) code_conv_pool_fwd_kernel(
   const bool whole = n_pt == 1;        // the rows' tiles are one run
   const int n_ext = TP * pk + k - 1;
 
-  if (low4(table) == 0)
-    load_cover(smem, 0, reinterpret_cast<const unsigned char*>(table), 0, 1,
-               4LL * slab_n);
-  else
-    for (int i = threadIdx.x; i < slab_n; i += blockDim.x)
-      s_table[i] = table[i];
+  stage(s_table, table, slab_n);
   for (int i = threadIdx.x; i < C; i += blockDim.x) s_bias[i] = bias[i];
   const CodeRows rows(codes, row_stride, b0, nr, p0, pk, pp + (k - 1) / 2,
                       n_ext, L);
@@ -373,7 +274,7 @@ __global__ void __launch_bounds__(256) code_conv_pool_fwd_kernel(
 // group grp's run of each piece's (row, window) pairs.  Writes the
 // block's (k, 16, C) partial.
 template <int K>
-__global__ void __launch_bounds__(256) code_conv_pool_bwd_kernel(
+__global__ void __launch_bounds__(kMaxThreads) code_conv_pool_bwd_kernel(
     const uint8_t* __restrict__ codes, long long row_stride,
     const uint8_t* __restrict__ jstar, const float* __restrict__ g,
     float* __restrict__ partial, int B, int L, int k, int C, int pk,
@@ -403,10 +304,10 @@ __global__ void __launch_bounds__(256) code_conv_pool_bwd_kernel(
     const int p0 = pt * TP, np = min(TP, P - p0);
     const long long in0 = (long long)b0 * C * P + p0;
     if (n_pt == 1) {                   // TP == P: (nr, C, P) in one run
-      load_cover(s_g, 0, gb + 4 * in0, 0, 1, 4LL * nr * C * P);
-      load_cover(s_js, 0, jstar + in0, 0, 1, (long long)nr * C * P);
+      load_cover(s_g, 0, gb + 4 * in0, 0, 1, 4 * nr * C * P);
+      load_cover(s_js, 0, jstar + in0, 0, 1, nr * C * P);
     } else {                           // nr * C segments of np windows
-      load_cover(s_g, lay.seg_g, gb + 4 * in0, 4LL * P, nr * C, 4LL * np);
+      load_cover(s_g, lay.seg_g, gb + 4 * in0, 4LL * P, nr * C, 4 * np);
       load_cover(s_js, lay.seg_j, jstar + in0, P, nr * C, np);
     }
     const CodeRows rows(codes, row_stride, b0, nr, p0, pk,
@@ -555,7 +456,7 @@ extern "C" cudaError_t code_conv_pool_fwd_launch(
     int C, int pk, int pp, int P, int R, int TP, int W, int grid,
     int threads, long long smem, cudaStream_t stream) {
   if (B == 0 || P == 0) return cudaSuccess;
-  if (pk > 255 || W < 1 || threads < 1 || threads > 256)
+  if (pk > 255 || W < 1 || threads < 1 || threads > kMaxThreads)
     return cudaErrorInvalidValue;      // jstar is uint8
   if (!plan_ok(B, P, R, TP, smem, Layout(k, C, R, TP, pk, 0, false))
       || grid != n_pieces(B, P, R, TP))
@@ -586,7 +487,7 @@ extern "C" cudaError_t code_conv_pool_bwd_launch(
     int C, int pk, int pp, int P, int R, int TP, int groups, int threads,
     int grid, long long smem, cudaStream_t stream) {
   const int n = k * kCodes * C;
-  if (B == 0 || P == 0 || groups < 1 || threads > 256
+  if (B == 0 || P == 0 || groups < 1 || threads > kMaxThreads
       || threads % groups != 0)
     return cudaErrorInvalidValue;
   const Layout lay(k, C, R, TP, pk, groups, true);

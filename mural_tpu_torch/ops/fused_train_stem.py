@@ -37,6 +37,8 @@ from mural_tpu_torch.device import constant
 from mural_tpu_torch.genome.encode import ONE_HOT_TABLE
 from mural_tpu_torch.ops._build import (I64, INT, PTR, KernelLibrary,
                                         check_launch, current_stream)
+from mural_tpu_torch.ops._plan import (MAX_SMEM, MAX_THREADS, NUM_SMS,
+                                       round_up, thread_runs)
 from mural_tpu_torch.ops.fused_code_conv import (NCODES, SENTINEL,
                                                  check_stem_args)
 
@@ -57,11 +59,6 @@ LIBRARY = KernelLibrary("code_conv_pool", {
                                   INT, INT, INT, INT, INT, INT, INT, INT,
                                   INT, INT, I64, PTR],
 })
-# The card the launch plan fills: an H100's SMs and the shared memory one
-# block may use; threads of a K2 block and of a K3 block's slab groups
-NUM_SMS = 132
-MAX_SMEM = 232_448
-MAX_THREADS = 256
 # pieces (blocks of K2) a call aims at when B is large: a few per SM
 TARGET_BLOCKS = 4 * NUM_SMS
 # K3 blocks per SM: each walks several pieces into its slabs, so a call
@@ -155,10 +152,6 @@ def _check_pool(pk: int, pp: int):
                          f"0 <= pp <= pk/2, got pk={pk}, pp={pp}")
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
 def _smem_bytes(k, C, R, TP, pk, groups, backward) -> int:
     """Shared memory of one block (the ``Layout`` of code_conv_pool.cu).
     K2: table and bias, the (R, C, TP) float32 and uint8 output tiles
@@ -168,12 +161,12 @@ def _smem_bytes(k, C, R, TP, pk, groups, backward) -> int:
     n, n_ext = R * C * TP, TP * pk + k - 1
     slab = k * NCODES * C
     if backward:
-        head = 4 * groups * slab + R * C * (_round_up(4 * TP + 15, 16)
-                                            + _round_up(TP + 15, 16))
+        head = 4 * groups * slab + R * C * (round_up(4 * TP + 15, 16)
+                                            + round_up(TP + 15, 16))
     else:
-        head = (4 * (slab + _round_up(C, 4)) + 4 * _round_up(n + 4, 4)
-                + _round_up(n + 16, 16))
-    return head + R * (_round_up(n_ext + 15, 16) + n_ext)
+        head = (4 * (slab + round_up(C, 4)) + 4 * round_up(n + 4, 4)
+                + round_up(n + 16, 16))
+    return head + R * (round_up(n_ext + 15, 16) + n_ext)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,10 +244,7 @@ def stem_launch_plan(B: int, L: int, k: int, C: int, pk: int, pp: int,
         threads, W = G * lanes, 0
     else:
         grid, G = n_rb * n_pt, 0
-        per_run = R * (C // vec)
-        nw = max(1, min(TP, MAX_THREADS // per_run))
-        W = -(-TP // nw)
-        threads = min(MAX_THREADS, _round_up(per_run * -(-TP // W), 32))
+        W, threads = thread_runs(R * (C // vec), TP)
     return StemPlan(B, P, R, TP, n_pt, n_rb * n_pt, grid, vec, threads, W,
                     G, smem(R, TP))
 
