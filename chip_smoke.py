@@ -40,17 +40,29 @@ Phases (any failure raises and the script exits non-zero):
    128 with the fused stem (K2/K3) against the unfused model (per-step
    loss within 1e-4), two unfused steps of 16 on the card against the
    CPU (1e-4), and the step time with the device's busy share;
-6. ``mural_snv predict --fused_inference --pred_batch_size 4096`` through
-   the CLI on the synthetic triple: TSV schema, row count, probabilities
-   summing to 1, K1 launched twice per batch; then the same without
-   ``--fused_inference``, whose rows must agree within ``%.4g``;
+6. ``mural_snv predict --fused_inference --pred_batch_size 4096
+   --kmer_corr 3 5 7 --region_corr 100000 500000`` through the CLI on the
+   synthetic triple: TSV schema, row count, probabilities summing to 1,
+   K1 launched twice per batch, the three k-mer and two regional
+   correlation lines (the 3-mer values finite) and the host seconds the
+   correlations take; then the same without ``--fused_inference`` and
+   without the correlations, whose rows must agree within ``%.4g``;
 7. ``mural_snv train --fused_stem on --epochs 2`` through the CLI on the
-   ``--n_train`` sites: both checkpoint triples, finite metrics,
+   ``--n_train`` sites: both checkpoint triples, finite metrics (the
+   regional ``score`` included) in both ``epoch_<n>_metrics.txt`` and in
    ``progress.csv``, K2 launched twice per train step and validation
    batch and K3 twice per train step; then ``get_best_model`` and
    ``predict --fused_inference`` on the best triple; then one epoch with
-   ``--fused_stem off``;
-8. a JSON line of the kernels and a timing line.
+   ``--fused_stem off --save_valid_preds --poisson_calib``, whose
+   ``checkpoint_0/model.valid_preds.tsv.gz`` has the predict schema and
+   whose log has the Poisson-calibrated evaluation lines;
+8. ``mural_snv evaluate`` (k-mer and regional; then ``--kmer_only
+   --kmer_length 5``) on phase 6's fused TSV and the synthetic FASTA:
+   six files with their headers, each ``corr.txt`` with 3 finite rows;
+   ``calc_scaling_factor --genomewide_mu 1e-8 --do_scaling`` and ``scale``
+   with the same factor: the two scaled files equal line for line,
+   probabilities summing to 1 within ``%.4g``; the seconds of each;
+9. a JSON line of the kernels and a timing line.
 
 The last line of standard output is the device record
 ``{"ok": true, "device": {...}}``.  ``--only_kernels`` runs the setup
@@ -709,6 +721,31 @@ TSV_HEADER = ["chrom", "start", "end", "strand", "mut_type", "prob0",
               "prob1", "prob2", "prob3"]
 
 
+class _Tee(io.TextIOBase):
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for stream in self.streams:
+            stream.write(text)
+        return len(text)
+
+    def flush(self):
+        for stream in self.streams:
+            stream.flush()
+
+
+def run_cli(cli, argv):
+    """One CLI command, its output echoed; returns (exit code, seconds,
+    printed lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        t0 = time.perf_counter()
+        rc = cli(argv)
+        seconds = time.perf_counter() - t0
+    return rc, seconds, buf.getvalue().splitlines()
+
+
 def cli_predict(cli, common, out, extra=()):
     """One predict through the CLI; returns its run record with the K1
     launches counted from 0 just before it."""
@@ -717,11 +754,27 @@ def cli_predict(cli, common, out, extra=()):
     fcc.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rc = cli(["predict", *common, "--pred_file", out, *extra])
+    rc, _, lines = run_cli(cli, ["predict", *common, "--pred_file", out,
+                                 *extra])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     return {"rc": rc, "seconds": seconds, "launches": fcc.LAUNCHES,
-            "tsv": read_tsv(out)}
+            "lines": lines, "tsv": read_tsv(out)}
+
+
+_CORR_LINE = re.compile(r"(?:(\d+mer) correlation: +|regional corr: "
+                        r"(\d+bp) )\[(.*)\]$")
+_CORR_SECONDS = re.compile(r"k-mer and regional correlation ([\d.]+)s")
+
+
+def printed_correlations(lines):
+    """{'3mer' | '<w>bp': [r per class]} of predict's correlation lines."""
+    out = {}
+    for line in lines:
+        m = _CORR_LINE.match(line)
+        if m:
+            out[m[1] or m[2]] = [float(v) for v in m[3].split(",")]
+    return out
 
 
 def phase_predict(work, fasta, bed, model_path, n_sites, cuda_id):
@@ -734,18 +787,28 @@ def phase_predict(work, fasta, bed, model_path, n_sites, cuda_id):
               "--pred_batch_size", str(BATCH), "--cuda_id", str(cuda_id),
               "--pred_time_view"]
     runs = {}
-    for name, extra in (("fused", ["--fused_inference"]), ("unfused", [])):
+    corr_flags = ["--kmer_corr", "3", "5", "7", "--region_corr", "100000",
+                  "500000"]
+    for name, extra in (("fused", ["--fused_inference", *corr_flags]),
+                        ("unfused", [])):
         runs[name] = run = cli_predict(cli, common,
                                        str(work / f"pred_{name}.tsv.gz"),
                                        extra)
-        run["sites_per_s"] = n_sites / run["seconds"]
-        log(f"predict {name}: {run['seconds']:.3f} s, "
-            f"{run['sites_per_s']:.1f} sites/s, K1 launches "
+        # the time view's host seconds of the correlations; sites/s is
+        # counted without them, as in the runs before they were added
+        run["corr_s"] = next((float(m[1]) for m in map(
+            _CORR_SECONDS.search, run["lines"]) if m), None)
+        run["sites_per_s"] = n_sites / (run["seconds"] - run["corr_s"])
+        log(f"predict {name}: {run['seconds']:.3f} s, of which k-mer and "
+            f"regional correlation {run['corr_s']:.3f} s; "
+            f"{run['sites_per_s']:.1f} sites/s without them, K1 launches "
             f"{run['launches']}")
 
     n_batches = math.ceil(n_sites / BATCH)
     fused, unfused = runs["fused"], runs["unfused"]
     header, keys, probs = fused["tsv"]
+    corr = fused["correlations"] = printed_correlations(fused["lines"])
+    log("predict fused, correlations: " + json.dumps(corr))
     check_all("predict", {
         "exit codes 0": fused["rc"] == 0 and unfused["rc"] == 0,
         "TSV schema": header == TSV_HEADER
@@ -757,6 +820,13 @@ def phase_predict(work, fasta, bed, model_path, n_sites, cuda_id):
         f"K1 launched 2 x {n_batches} batches":
             fused["launches"] == 2 * n_batches,
         "no K1 launch unfused": unfused["launches"] == 0,
+        "3mer, 5mer, 7mer, 100000bp and 500000bp correlation lines":
+            sorted(corr) == sorted(["3mer", "5mer", "7mer", "100000bp",
+                                    "500000bp"])
+            and all(len(v) == 4 for v in corr.values()),
+        "finite 3-mer correlations": bool(np.isfinite(corr.get("3mer",
+                                                               [np.nan])
+                                                      ).all()),
         "same rows fused and unfused": keys == unfused["tsv"][1],
         # both files print %.4g: one unit in the 4th digit apart at most
         "probabilities agree within %.4g": bool(np.all(
@@ -777,7 +847,8 @@ def check_all(what, checks):
 
 _EPOCH_LINE = re.compile(
     r"Epoch (\d+) used time: ([\d.]+)s \(train (\d+) steps in ([\d.]+)s, "
-    r"valid (\d+) batches in ([\d.]+)s")
+    r"valid (\d+) batches in ([\d.]+)s, calib/ckpt ([\d.]+)s, of which "
+    r"evaluation ([\d.]+)s\)")
 
 
 def cli_train(cli, work, fasta, bed, name, cuda_id, extra):
@@ -806,9 +877,10 @@ def cli_train(cli, work, fasta, bed, name, cuda_id, extra):
     trials = sorted(d for d in os.listdir(exp) if d.startswith("Train_"))
     trial = exp / trials[0]
     epochs = [dict(zip(("epoch", "epoch_s", "train_steps", "train_s",
-                        "valid_batches", "valid_s"),
+                        "valid_batches", "valid_s", "calib_ckpt_s",
+                        "evaluation_s"),
                        (int(m[0]), float(m[1]), int(m[2]), float(m[3]),
-                        int(m[4]), float(m[5]))))
+                        int(m[4]), float(m[5]), float(m[6]), float(m[7]))))
               for m in _EPOCH_LINE.findall(
                   (trial / "training.log").read_text())]
     for e in epochs:
@@ -835,6 +907,7 @@ def phase_train_cli(work, fasta, bed, n_train, cuda_id):
                             path.read_text().splitlines()) if path.exists()
                        else {})
     progress = trial / "progress.csv"
+    rows = progress.read_text().splitlines() if progress.exists() else []
     check_all("train --fused_stem on", {
         "exit code 0": run["rc"] == 0,
         "one trial": run["n_trials"] == 1,
@@ -842,11 +915,12 @@ def phase_train_cli(work, fasta, bed, n_train, cuda_id):
         "checkpoint_0 and checkpoint_1 hold the triple": all(
             (trial / f"checkpoint_{e}" / f).exists() for e in (0, 1)
             for f in ("model", "model.config.pkl", "model.fdiri_cal.pkl")),
-        "finite loss and fdiri_loss": all(
+        "finite loss, fdiri_loss and score in both metrics files": all(
             np.isfinite(float(m.get(k, "nan"))) for m in metrics
-            for k in ("loss", "fdiri_loss")),
-        "progress.csv has two epochs": progress.exists()
-        and len(progress.read_text().splitlines()) == 3,
+            for k in ("loss", "fdiri_loss", "score")),
+        "progress.csv has two epochs, each with a finite score":
+            len(rows) == 3 and rows[0].split(",")[4] == "score"
+            and all(np.isfinite(float(r.split(",")[4])) for r in rows[1:]),
         f"K2 launched 2 x ({steps} train steps + {vbatches} validation "
         f"batches)": run["k2"] == 2 * (steps + vbatches),
         f"K3 launched 2 x {steps} train steps": run["k3"] == 2 * steps,
@@ -887,18 +961,113 @@ def phase_train_cli(work, fasta, bed, n_train, cuda_id):
     })
 
     off = cli_train(cli, work, fasta, bed, "unfused", cuda_id,
-                    ["--fused_stem", "off", "--epochs", "1"])
-    check_all("train --fused_stem off", {
+                    ["--fused_stem", "off", "--epochs", "1",
+                     "--save_valid_preds", "--poisson_calib"])
+    valid_preds = off["trial"] / "checkpoint_0" / "model.valid_preds.tsv.gz"
+    vp = read_tsv(valid_preds) if valid_preds.exists() else ([], [], None)
+    off_log = (off["trial"] / "training.log").read_text()
+    check_all("train --fused_stem off --save_valid_preds --poisson_calib", {
         "exit code 0": off["rc"] == 0,
         "one epoch logged": len(off["epochs"]) == 1,
         "checkpoint_0 holds the triple": all(
             (off["trial"] / "checkpoint_0" / f).exists()
             for f in ("model", "model.config.pkl", "model.fdiri_cal.pkl")),
         "no K2/K3 launch": off["k2"] == 0 and off["k3"] == 0,
+        "checkpoint_0/model.valid_preds.tsv.gz in the predict schema":
+            vp[0] == TSV_HEADER and len(vp[1]) > 0,
+        "the log has the (after Poisson_cal) evaluation lines": all(
+            f"{k}mer correlation(after Poisson_cal)" in off_log
+            for k in (3, 5, 7))
+            and "regional score(after Poisson_cal)" in off_log,
     })
     log(f"train --fused_stem off: {off['seconds']:.3f} s; epochs "
         + json.dumps(off["epochs"]))
     return run, off
+
+
+RATE_COLUMNS = [f"{kind}{i}" for kind in ("avg_obs_rate", "avg_pred_rate",
+                                          "number_of_mut")
+                for i in (1, 2, 3)] + ["number_of_all"]
+
+
+def read_corr(path):
+    """Rows (tag, subtype, r, p) of a ``corr.txt``."""
+    rows = [line.split("\t") for line in path.read_text().splitlines()]
+    return [(r[0], int(r[1]), float(r[2]), float(r[3])) for r in rows]
+
+
+def read_lines(path):
+    with gzip.open(path, "rt") as fh:
+        return fh.read().splitlines()
+
+
+def phase_evaluate(work, fasta, pred_file):
+    """evaluate, calc_scaling_factor and scale through the CLI on phase
+    6's fused prediction TSV."""
+    from mural_tpu_torch.cli.mural_snv import main as cli
+    from mural_tpu_torch.predict.scaling import calc_mu_scaling_factor
+    seconds = {}
+
+    def run(name, argv):
+        rc, seconds[name], lines = run_cli(cli, argv)
+        log(f"{name}: {seconds[name]:.3f} s")
+        return rc, lines
+
+    prefix = work / "ev"
+    rcs = [run("evaluate", ["evaluate", "--pred_file", pred_file,
+                            "--ref_genome", fasta, "--out_prefix",
+                            str(prefix)])[0],
+           run("evaluate --kmer_only --kmer_length 5", [
+               "evaluate", "--pred_file", pred_file, "--ref_genome", fasta,
+               "--out_prefix", str(prefix), "--kmer_only", "--kmer_length",
+               "5"])[0]]
+    rc, lines = run("calc_scaling_factor", [
+        "calc_scaling_factor", "--pred_files", pred_file, "--genomewide_mu",
+        "1e-8", "--m_proportions", "1", "--g_proportions", "1",
+        "--do_scaling"])
+    rcs.append(rc)
+    printed = next((float(line.split(": ")[1]) for line in lines
+                    if line.startswith("scaling factor: ")), math.nan)
+    # the exact factor, which the CLI prints to 4 digits only
+    factor = calc_mu_scaling_factor([pred_file], 1e-8, [1.0], 4,
+                                    printer=lambda *a: None)
+    scaled = work / "scaled.tsv.gz"
+    rcs.append(run("scale", ["scale", "--pred_file", pred_file,
+                             "--scale_factor", repr(factor), "--out_file",
+                             str(scaled)])[0])
+
+    files = {f"{prefix.name}.{tag}.{kind}": prefix.with_name(
+        f"{prefix.name}.{tag}.{kind}") for tag in ("3-mer", "5-mer", "100Kb")
+        for kind in ("mut_rates.tsv", "corr.txt")}
+    headers = {name: path.read_text().split("\n", 1)[0].split("\t")
+               for name, path in files.items()
+               if path.exists() and name.endswith(".tsv")}
+    corrs = {name: read_corr(path) for name, path in files.items()
+             if path.exists() and name.endswith(".txt")}
+    _, _, probs = read_tsv(scaled)
+    check_all("evaluate, calc_scaling_factor and scale", {
+        "exit codes 0": rcs == [0, 0, 0, 0],
+        "six files": all(path.exists() for path in files.values()),
+        "k-mer headers": [headers.get(f"ev.{k}-mer.mut_rates.tsv")
+                          for k in (3, 5)] == [["type"] + RATE_COLUMNS] * 2,
+        "regional header": headers.get("ev.100Kb.mut_rates.tsv") == [
+            "chrom", "window_end"] + RATE_COLUMNS + ["used_or_deprecated"],
+        "each corr.txt has 3 rows with finite r": len(corrs) == 3 and all(
+            [r[1] for r in rows] == [1, 2, 3]
+            and all(np.isfinite(r[2]) for r in rows)
+            for rows in corrs.values()),
+        "the factor finite and positive, printed to 4 digits": bool(
+            np.isfinite(factor) and factor > 0
+            and abs(printed - factor) <= 5e-4 * factor),
+        "the two scaled files equal line for line":
+            read_lines(pred_file + ".scaled.tsv.gz") == read_lines(scaled),
+        "scaled probabilities summing to 1": bool(
+            np.isfinite(probs).all()
+            and np.abs(probs.sum(1) - 1).max() <= 1e-3),
+    })
+    return {"seconds": seconds, "scale_factor": factor,
+            "corr": {name: [r[2] for r in rows]
+                     for name, rows in corrs.items()}}
 
 
 def kernel_records(k1, k23, k1_launches, train_on):
@@ -1020,9 +1189,12 @@ def main(argv=None) -> int:
     # 7. the training path (K2/K3 counted from 0 around each run)
     train_on, train_off = timed("train_cli", phase_train_cli, work, fasta,
                                 train_bed, args.n_train, dev.index or 0)
+    # 8. evaluate and scale phase 6's predictions
+    evaluation = timed("evaluate_scale", phase_evaluate, work, fasta,
+                       str(work / "pred_fused.tsv.gz"))
     shutil.rmtree(work, ignore_errors=True)
 
-    # 8. results
+    # 9. results
     log(json.dumps({"kernels": kernel_records(
         k1, k23, fused["launches"], train_on)}))
     log(json.dumps({
@@ -1035,6 +1207,9 @@ def main(argv=None) -> int:
         "predict_fused_sites_per_s": fused["sites_per_s"],
         "predict_unfused_s": unfused["seconds"],
         "predict_unfused_sites_per_s": unfused["sites_per_s"],
+        "predict_fused_correlation_s": fused["corr_s"],
+        "predict_fused_correlations": fused["correlations"],
+        "evaluate_scale": evaluation,
         "train_fused_epochs": train_on["epochs"],
         "train_unfused_epochs": train_off["epochs"],
         "n_sites": args.n_sites, "n_train": args.n_train, "batch": BATCH,

@@ -1,6 +1,7 @@
 """argparse builders of the ported sub-commands (counterpart of
-``mural_tpu/cli/commands.py``): ``train``, ``predict`` and
-``get_best_model``, with the JAX package's flags and defaults.
+``mural_tpu/cli/commands.py``): ``train``, ``predict``,
+``get_best_model``, ``evaluate``, ``scale`` and ``calc_scaling_factor``,
+with the JAX package's flags and defaults.
 ``--cpu_only`` and ``--cuda_id`` have their reference meaning: the run
 goes to CUDA device ``--cuda_id`` (default the current one) unless
 ``--cpu_only`` is given.  Flags of options this port does not run yet
@@ -210,7 +211,7 @@ def add_train_parser(subparsers, model_type: str):
     c = p.add_argument_group("Calibration-related arguments")
     c.add_argument("--poisson_calib", default=False, action="store_true",
                    help="Poisson-based probability calibration of the "
-                        "validation evaluation (not ported yet).")
+                        "validation evaluation.")
     _learning_args(p, [0.001])
     _scheduler_args(p, f"{model_type}_experiment")
     p.set_defaults(func="train")
@@ -279,9 +280,105 @@ def add_predict_parser(subparsers, model_type: str):
                           "kernel (SNV model_no 2 only).")
     opt.add_argument("--kmer_corr", type=int, metavar="INT", default=[],
                      nargs="+", help="Inline k-mer correlations for "
-                     "these odd k values (not ported yet).")
+                     "these odd k values.")
     opt.add_argument("--region_corr", type=int, metavar="INT", default=[],
                      nargs="+", help="Inline regional correlations for "
-                     "these window sizes (not ported yet).")
+                     "these window sizes.")
     p.set_defaults(func="predict")
+    return p
+
+
+def add_evaluate_parser(subparsers, model_type: str):
+    p = subparsers.add_parser(
+        "evaluate", help="Evaluate obs/pred correlations of predictions",
+        formatter_class=argparse.RawTextHelpFormatter)
+    req = p.add_argument_group("Required arguments")
+    req.add_argument("--pred_file", required=True, type=str,
+                     help="Predicted file")
+    req.add_argument("--out_prefix", default="result", type=str,
+                     help="Output filename prefix")
+    req.add_argument("--kmer_only", default=False, action="store_true",
+                     help="Only run the k-mer correlation.")
+    req.add_argument("--regional_only", default=False,
+                     action="store_true",
+                     help="Only run the regional correlation.")
+    req.add_argument("--motif_only", default=False, action="store_true",
+                     help="Only run the motif correlation (INDEL).")
+    req.add_argument("--n_class", type=int,
+                     default=4 if model_type == "snv" else 8,
+                     help="Number of classes.")
+    k = p.add_argument_group("k-mer arguments")
+    k.add_argument("--ref_genome", required=False, default=None, type=str,
+                   help="Reference genome FASTA (k-mer/motif mode).")
+    k.add_argument("--kmer_length", type=int,
+                   default=3 if model_type == "snv" else 2,
+                   help="k-mer length (odd for SNV, even for INDEL "
+                        "whose windows span the gap).")
+    k.add_argument("--motif_length", type=int,
+                   default=3 if model_type == "snv" else 6,
+                   help=argparse.SUPPRESS)
+    if model_type == "indel":
+        k.add_argument("--strand", type=str, default="pos",
+                       choices=["pos", "neg", "both"],
+                       help="Read k-mers from which strand.")
+    r = p.add_argument_group("Regional arguments")
+    r.add_argument("--window_size", type=int, default=100000,
+                   help="Window size for regional correlation.")
+    r.add_argument("--ratio_cutoff", type=float, default=0.2,
+                   help="Cutoff (x median sites) to drop sparse windows.")
+    p.set_defaults(func="evaluate")
+    return p
+
+
+def add_scale_parser(subparsers, model_type: str):
+    p = subparsers.add_parser(
+        "scale", help="Apply scaling factors to predictions",
+        formatter_class=argparse.RawTextHelpFormatter)
+    g = p.add_argument_group("Required arguments")
+    g.add_argument("--pred_file", required=True, type=str, metavar="FILE",
+                   nargs="+", help="Prediction file(s).")
+    g.add_argument("--scale_factor", required=True, type=float,
+                   metavar="FLOAT", nargs="+", help="Scaling factor(s).")
+    g.add_argument("--out_file", type=str, metavar="FILE", nargs="+",
+                   help="Output file(s).")
+    g.add_argument("--benchmark_regions", type=str, metavar="FILE",
+                   default="", help=argparse.SUPPRESS)
+    g.add_argument("--genomewide_mu", type=float, metavar="FLOAT",
+                   default=None, help=argparse.SUPPRESS)
+    g.add_argument("--n_class", type=int,
+                   default=4 if model_type == "snv" else 8,
+                   help="Number of classes.")
+    p.set_defaults(func="scale")
+    return p
+
+
+def add_calc_scaling_factor_parser(subparsers, model_type: str):
+    p = subparsers.add_parser(
+        "calc_scaling_factor",
+        help="Calculate per-class rate scaling factors",
+        formatter_class=argparse.RawTextHelpFormatter)
+    g = p.add_argument_group("Required arguments")
+    g.add_argument("--pred_files", required=True, type=str,
+                   metavar="FILE", nargs="+", help="Prediction file(s), "
+                   "one per mutation type.")
+    g.add_argument("--out_file", type=str, metavar="FILE", nargs="+",
+                   help="Output file(s).")
+    g.add_argument("--benchmark_regions", type=str, metavar="FILE",
+                   default="", help="BED of benchmark regions to "
+                   "restrict the calculation.")
+    g.add_argument("--genomewide_mu", type=float, metavar="FLOAT",
+                   default=None, help="Genome-wide per-generation "
+                   "mutation rate.")
+    g.add_argument("--m_proportions", type=float, metavar="float",
+                   nargs="+", help="Proportion of each mutation type.")
+    g.add_argument("--do_scaling", default=False, action="store_true",
+                   help="Also write scaled prediction files.")
+    if model_type == "snv":
+        g.add_argument("--g_proportions", type=float, metavar="FLOAT",
+                       nargs="+", help="Genome proportion of each "
+                       "focal-base group.")
+    g.add_argument("--n_class", type=int,
+                   default=4 if model_type == "snv" else 8,
+                   help="Number of classes.")
+    p.set_defaults(func="calc_scaling_factor")
     return p

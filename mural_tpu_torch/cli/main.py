@@ -1,7 +1,8 @@
 """CLI dispatch for mural_snv (counterpart of ``mural_tpu/cli/main.py``).
 
-``train`` (standalone trials, one after another), ``predict`` and
-``get_best_model`` are ported; the reference's other sub-commands raise
+``train`` (standalone trials, one after another), ``predict``,
+``evaluate``, ``scale``, ``calc_scaling_factor`` and ``get_best_model``
+are ported; the reference's other sub-commands raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
@@ -13,11 +14,7 @@ import sys
 
 from mural_tpu_torch.cli import commands as C
 
-_NOT_PORTED = {
-    "evaluate": 3, "scale": 4,
-    "calc_scaling_factor": 4, "transfer": 7, "convert": 7,
-    "predict_genome": 9,
-}
+_NOT_PORTED = {"transfer": 7, "convert": 7, "predict_genome": 9}
 
 
 def create_parser(model_type: str) -> argparse.ArgumentParser:
@@ -31,6 +28,9 @@ def create_parser(model_type: str) -> argparse.ArgumentParser:
     sub = parser.add_subparsers(dest="command")
     C.add_train_parser(sub, model_type)
     C.add_predict_parser(sub, model_type)
+    C.add_evaluate_parser(sub, model_type)
+    C.add_scale_parser(sub, model_type)
+    C.add_calc_scaling_factor_parser(sub, model_type)
     C.add_get_best_model_parser(sub, model_type)
     return parser
 
@@ -161,6 +161,63 @@ def cmd_predict(args, model_type: str) -> int:
     return 0
 
 
+def cmd_evaluate(args, model_type: str) -> int:
+    """k-mer and regional correlation files of a prediction TSV
+    (``mural_tpu/cli/main.py:339-373``)."""
+    from mural_tpu_torch.evaluation.corr_files import (run_kmer_corr,
+                                                       run_motif_corr,
+                                                       run_regional_corr)
+    assert not (args.kmer_only and args.regional_only), \
+        "Please set one of --kmer_only or --regional_only to True."
+    strand = None
+    if model_type == "indel":
+        strand = {"pos": "+", "neg": "-", "both": "both"}[args.strand]
+
+    def kmer():
+        assert args.ref_genome, ("--ref_genome is required for k-mer "
+                                 "correlation calculation")
+        run_kmer_corr(args.pred_file, args.ref_genome, args.out_prefix,
+                      args.kmer_length, args.n_class, model_type,
+                      strand_override=strand)
+
+    def regional():
+        run_regional_corr(args.pred_file, args.out_prefix,
+                          args.window_size, args.ratio_cutoff,
+                          args.n_class)
+
+    if args.kmer_only:
+        kmer()
+        return 0
+    if args.regional_only:
+        regional()
+        return 0
+    if model_type == "indel" and args.motif_only:
+        run_motif_corr(args.pred_file, args.ref_genome, args.out_prefix,
+                       args.motif_length, args.n_class, model_type)
+        return 0
+    kmer()
+    regional()
+    return 0
+
+
+def cmd_scale(args, model_type: str) -> int:
+    from mural_tpu_torch.predict.scaling import scaling_files
+    scaling_files(args.pred_file, args.scale_factor, args.n_class,
+                  args.out_file)
+    return 0
+
+
+def cmd_calc_scaling_factor(args, model_type: str) -> int:
+    from mural_tpu_torch.predict.scaling import calc_mu_scaling_factor
+    calc_mu_scaling_factor(
+        args.pred_files, args.genomewide_mu, args.m_proportions,
+        args.n_class, model_type,
+        g_proportions=getattr(args, "g_proportions", None),
+        benchmark_regions=args.benchmark_regions or None,
+        do_scaling=args.do_scaling)
+    return 0
+
+
 def main(model_type: str, argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in _NOT_PORTED:
@@ -180,4 +237,6 @@ def main(model_type: str, argv=None) -> int:
 
 
 _DISPATCH = {"train": cmd_train, "predict": cmd_predict,
+             "evaluate": cmd_evaluate, "scale": cmd_scale,
+             "calc_scaling_factor": cmd_calc_scaling_factor,
              "get_best_model": cmd_get_best_model}

@@ -3,15 +3,15 @@
 
 Rehydrates the architecture from ``model.config.pkl``, encodes the BED,
 runs batched inference on the device, applies the saved calibrator
-and/or Poisson calibration, and writes the reference's TSV schema
+and/or Poisson calibration, writes the reference's TSV schema
 ``chrom start end strand mut_type prob0..N`` sorted by (chrom, start)
-with ``%.4g`` floats (gzip when the path ends in ``.gz``).
+with ``%.4g`` floats (gzip when the path ends in ``.gz``), and prints the
+k-mer (``--kmer_corr``) and regional (``--region_corr``) correlations.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import gzip
 import time
 from typing import Dict, List, Optional
 
@@ -22,12 +22,16 @@ from mural_tpu_torch.calibrate.poisson import poisson_calibrate
 from mural_tpu_torch.data.batcher import segment_pool_batches
 from mural_tpu_torch.data.dataset import prepare_dataset
 from mural_tpu_torch.device import resolve_device
+from mural_tpu_torch.evaluation.evaluator import (_kmer_columns,
+                                                  corr_calc_sub,
+                                                  freq_kmer_comp_multi)
 from mural_tpu_torch.genome.fasta import Genome
 from mural_tpu_torch.models.layers import one_hot_from_codes
 from mural_tpu_torch.models.registry import build_model_from_config
 from mural_tpu_torch.train.checkpoint import (load_calibrator,
                                               load_checkpoint, load_config)
 from mural_tpu_torch.train.steps import masked_ce_sum
+from mural_tpu_torch.utils.tsv import write_tsv
 
 
 @dataclasses.dataclass
@@ -54,8 +58,6 @@ class PredictOptions:
 
 def _check_ported(opts: PredictOptions) -> None:
     not_ported = [
-        (opts.kmer_corr, "--kmer_corr", 3),
-        (opts.region_corr, "--region_corr", 3),
         (opts.with_h5, "--with_h5", 4),
         (opts.bw_paths, "--bw_paths", 6),
         (opts.n_devices > 1, "--n_devices > 1", 10),
@@ -165,34 +167,49 @@ def run_predict(opts: PredictOptions, model_type: str = "snv",
         out[f"prob{i}"] = probs[order, i]
     if opts.pred_file:
         write_tsv(opts.pred_file, out)
+    t_corr = time.time()
+
+    if opts.kmer_corr:
+        # the dataset-order columns, as the JAX package (k-mer sums do not
+        # depend on the row order)
+        data_and_prob = ds.local_frame()
+        for i in range(n_class):
+            data_and_prob[f"prob{i}"] = probs[:, i]
+        _kmer_corr(data_and_prob, opts.kmer_corr, n_class, printer)
+    if opts.region_corr:
+        if min(opts.region_corr) <= 0:
+            printer("Warning: please provide positive numbers for window "
+                    "sizes. No regional correlation was calculated.")
+        else:
+            prob_names = [f"prob{i}" for i in range(n_class)]
+            for win in opts.region_corr:
+                corr = corr_calc_sub(out, win, prob_names)
+                printer("regional corr:", f"{win}bp", corr)
+
     if opts.pred_time_view:
         printer(f"time view: preprocess and model load "
                 f"{t_loop - start_time:.3f}s, batch loop {t_out - t_loop:.3f}s"
                 f" (host batch build {fetch_all + t_fetch:.3f}s, copy and "
                 f"forward enqueue {pred_all + t_pred:.3f}s), calibration, "
-                f"sort and output {time.time() - t_out:.3f}s")
+                f"sort and output {t_corr - t_out:.3f}s, k-mer and "
+                f"regional correlation {time.time() - t_corr:.3f}s")
     printer("Total time used: %s seconds" % (time.time() - start_time))
     return out
 
 
-def _fmt(v: float) -> str:
-    return "" if np.isnan(v) else "%.4g" % v
-
-
-def write_tsv(path: str, cols: Dict[str, np.ndarray]) -> None:
-    """Tab-separated with a header; floats as ``%.4g`` (NaN as an empty
-    field), gzip-compressed when ``path`` ends in ``.gz``."""
-    names = list(cols)
-    prob_names = [n for n in names if n.startswith("prob")]
-    probs = np.stack([cols[n] for n in prob_names], axis=1) if prob_names \
-        else np.zeros((len(cols["start"]), 0))
-    lines = ["\t".join(names)]
-    for i in range(len(cols["start"])):
-        lines.append("\t".join(
-            [str(cols["chrom"][i]), str(cols["start"][i]),
-             str(cols["end"][i]), str(cols["strand"][i]),
-             str(cols["mut_type"][i])] + [_fmt(v) for v in probs[i]]))
-    data = ("\n".join(lines) + "\n").encode()
-    opener = gzip.open if path.endswith(".gz") else open
-    with opener(path, "wb") as fh:
-        fh.write(data)
+def _kmer_corr(data_and_prob, kmer_list, n_class: int, printer) -> None:
+    if any(k % 2 == 0 or k < 0 for k in kmer_list):
+        printer("Warning: please provide odd positive numbers for k-mer "
+                "lengths", kmer_list, ". No k-mer correlation was "
+                "calculated.")
+        return
+    for k in kmer_list:
+        missing = [c for c in _kmer_columns(k) if c not in data_and_prob]
+        if missing:
+            # a k larger than the checkpoint's local window warns instead
+            # of failing after the whole inference
+            printer(f"Warning: skipping {k}-mer correlation (checkpoint "
+                    f"local_radius too small; missing columns {missing})")
+            continue
+        corr = freq_kmer_comp_multi(data_and_prob, k, n_class)
+        printer(f"{k}mer correlation: ", corr)

@@ -5,10 +5,11 @@ dataset build -> segment-level train/validation split (``split_seed``)
 -> emb_dims -> SNVNet2 build + the reference init from ``rng_seed`` ->
 weight_decay_auto -> optimizer and LR schedule -> epochs of train steps
 on host-built batches -> per epoch: validation, FullDirichlet fit,
-checkpoint triple, ``epoch_<n>_metrics.txt``, EarlyStopping and ROP ->
-``progress.csv``.
+k-mer and regional evaluation (whose regional score is the metrics'
+``score``), checkpoint triple, ``epoch_<n>_metrics.txt``, EarlyStopping
+and ROP -> ``progress.csv``.
 
-The epoch tail (calibration, metrics, checkpoint) runs inline after
+The epoch tail (calibration, evaluation, checkpoint) runs inline after
 validation, where the JAX package overlaps it with the next epoch on a
 thread; the files it writes and their order are the same.  With
 ``fused_stem='on'`` each distal tower's first BN -> conv -> pool runs as
@@ -29,9 +30,11 @@ import numpy as np
 import torch
 
 from mural_tpu_torch.calibrate.fit import calibrate_prob
+from mural_tpu_torch.calibrate.poisson import poisson_calibrate
 from mural_tpu_torch.data.batcher import segment_pool_batches
 from mural_tpu_torch.data.dataset import SiteDataset, prepare_dataset
 from mural_tpu_torch.device import resolve_device, to_device
+from mural_tpu_torch.evaluation.evaluator import Evaluator
 from mural_tpu_torch.genome.fasta import Genome
 from mural_tpu_torch.models.init import init_weights
 from mural_tpu_torch.models.registry import build_model
@@ -89,10 +92,6 @@ def check_ported(opts: TrainOptions, model_type: str = "snv") -> None:
         (opts.bw_paths, "--bw_paths", 6),
         (opts.distal_order != 1, f"--distal_order {opts.distal_order}", 6),
         (opts.with_h5, "--with_h5", 4),
-        (opts.save_valid_preds, "--save_valid_preds", 3),
-        # Poisson-calibrated probabilities feed only the k-mer and
-        # regional evaluation, which is not ported
-        (opts.poisson_calib, "--poisson_calib", 3),
         (opts.bf16, "--bf16", 10),
         ((opts.steps_per_dispatch or 1) > 1, "--steps_per_dispatch > 1", 10),
         (opts.resident == "on", "--resident_data on", 10),
@@ -252,20 +251,47 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
                 model_input(to_device(batch.distal, device),
                             use_fused_stem), mask)
 
+    data_local_valid = ds_valid.local_frame()
+    chr_pos_valid = ds_valid.position_frame()
+
     def epoch_tail(epoch, valid_probs, total_loss, valid_total_loss):
-        """Calibration, losses, checkpoint triple and metrics file."""
+        """Calibration, evaluation, losses, checkpoint triple and metrics
+        file, in the JAX package's order; returns the metrics and the
+        seconds the Evaluators took."""
         nonlocal min_loss, min_loss_epoch, after_min_loss
         fdiri_cal, fdiri_nll = calibrate_prob(
-            valid_probs, ds_valid.local_frame()["mut_type"], "FullDiri",
+            valid_probs, data_local_valid["mut_type"], "FullDiri",
             printer=printer)
-        printer("k-mer and regional evaluation (and its Poisson-"
-                "calibrated variant) is not ported yet (ROADMAP.md item "
-                "3): score nan")
+        t_eval = time.time()
+        evs = [Evaluator(data_local_valid, valid_probs, opts.n_class,
+                         printer=printer),
+               Evaluator(data_local_valid,
+                         fdiri_cal.predict_proba(valid_probs), opts.n_class,
+                         calibra="FullDiri", printer=printer)]
+        if opts.poisson_calib:
+            evs.append(Evaluator(data_local_valid,
+                                 poisson_calibrate(valid_probs),
+                                 opts.n_class, calibra="Poisson",
+                                 printer=printer))
+        kmer_list = [3, 5, 7]
+        for ev in evs:
+            ev.evaluate_kmer(kmer_list)
+        eval_s = time.time() - t_eval
         printer("Training Loss: ", total_loss / max(train_size, 1))
         printer("Validation Loss: ", valid_total_loss / max(valid_size, 1))
         printer("Validation Loss (after fdiri_cal): ", fdiri_nll)
+        t_eval = time.time()
+        for ev in evs:
+            ev.evaluate_regional_score(valid_size, kmer_list[:2])
         save_path = os.path.join(opts.trial_dir, f"checkpoint_{epoch}",
                                  "model")
+        os.makedirs(os.path.dirname(save_path), exist_ok=True)
+        evs[0].evaluate_regional_corr(
+            chr_pos_valid, save_valid_preds=opts.save_valid_preds,
+            save_path=save_path)
+        for ev in evs[1:]:
+            ev.evaluate_regional_corr(chr_pos_valid)
+        eval_s += time.time() - t_eval
         save_checkpoint(save_path, model, config, fdiri_cal)
         current_loss = valid_total_loss / max(valid_size, 1)
         if epoch == 0 or current_loss < min_loss:
@@ -273,13 +299,14 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
         else:
             after_min_loss = epoch - min_loss_epoch
         m = {"loss": current_loss, "fdiri_loss": fdiri_nll,
-             "after_min_loss": after_min_loss, "score": float("nan"),
+             "after_min_loss": after_min_loss,
+             "score": evs[0].metrics.get("score", float("nan")),
              "total_params": total_params, "epoch": epoch}
         with open(os.path.join(opts.trial_dir, f"checkpoint_{epoch}",
                                f"epoch_{epoch}_metrics.txt"), "w") as fh:
             for k, v in m.items():
                 fh.write(f"{k}: {v}\n")
-        return m
+        return m, eval_s
 
     for epoch in range(opts.epochs):
         epoch_t = time.time()
@@ -324,8 +351,8 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
                         else np.zeros((0, opts.n_class), np.float32))
         t_valid_done = time.time()
 
-        metrics = epoch_tail(epoch, _softmax(valid_logits), total_loss,
-                             valid_total_loss)
+        metrics, eval_s = epoch_tail(epoch, _softmax(valid_logits),
+                                     total_loss, valid_total_loss)
         stop = report_fn is not None and report_fn(metrics) is False
         if stop:
             printer("Trial stopped by scheduler")
@@ -342,7 +369,8 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
                 f"(train {n_steps} steps in {t_train_done - epoch_t:.3f}s, "
                 f"valid {n_valid_batches} batches in "
                 f"{t_valid_done - t_train_done:.3f}s, calib/ckpt "
-                f"{now - t_valid_done:.3f}s)")
+                f"{now - t_valid_done:.3f}s, of which evaluation "
+                f"{eval_s:.3f}s)")
         sys.stdout.flush()
         if stop:
             break

@@ -1,7 +1,7 @@
 """The port (mural_tpu_torch) and chip_smoke.py load neither JAX nor any
-module of the JAX package, including while they unpickle a calibrator
-that mural_tpu wrote.  Runs in a subprocess: this test process already
-holds jax."""
+module of the JAX package, nor pandas or h5py (the GPU machine has
+neither), including while they unpickle a calibrator that mural_tpu
+wrote.  Runs in a subprocess: this test process already holds jax."""
 import os
 import pickle
 import subprocess
@@ -19,6 +19,9 @@ TRAIN_SLICE = [f"mural_tpu_torch.{m}" for m in (
     "train.early_stopping", "train.loop", "calibrate.fit",
     "calibrate.metrics", "tune.runner", "utils.trials", "utils.params",
     "utils.printer")]
+EVAL_SLICE = [f"mural_tpu_torch.{m}" for m in (
+    "evaluation", "evaluation.evaluator", "evaluation.corr_files",
+    "predict.scaling", "utils.tsv")]
 
 
 def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
@@ -46,7 +49,8 @@ def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
         np.save({str(tmp_path / 'out.npy')!r}, out)
         banned = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax",
-                                               "optax", "mural_tpu"))
+                                               "optax", "mural_tpu",
+                                               "pandas", "h5py"))
         print("MODULES", len(names), type(cal).__module__)
         print("NAMES", ",".join(names))
         print("BANNED", banned)
@@ -60,9 +64,9 @@ def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
     lines = dict(line.split(" ", 1) for line in res.stdout.splitlines()
                  if line.startswith(("MODULES", "BANNED", "NAMES")))
     n_modules, cal_module = lines["MODULES"].split()
-    assert int(n_modules) >= 44
-    # the training slice's modules are among those imported
-    assert set(TRAIN_SLICE) <= set(lines["NAMES"].split(","))
+    assert int(n_modules) >= 49
+    # the training and evaluation slices' modules are among those imported
+    assert set(TRAIN_SLICE + EVAL_SLICE) <= set(lines["NAMES"].split(","))
     assert cal_module == "mural_tpu_torch.calibrate.dirichlet"
     assert lines["BANNED"] == "[]"
     np.testing.assert_allclose(np.load(tmp_path / "out.npy"),

@@ -1,8 +1,10 @@
 """The port's ``mural_snv predict`` (mural_tpu_torch.predict.run_predict
 and its CLI) against the JAX package's on the CPU: one checkpoint triple
 written by mural_tpu (msgpack weights + a fitted FullDirichlet
-calibrator), predicted with and without --fused_inference."""
+calibrator), predicted with and without --fused_inference, with the
+inline k-mer and regional correlations."""
 import gzip
+import re
 
 import numpy as np
 import pandas as pd
@@ -86,13 +88,26 @@ def _mean_loss(lines):
     return float(line.split(":")[1].split()[0])
 
 
+def _correlations(lines):
+    """{'3mer' | '<w>bp': [r per class]} of predict's printed k-mer and
+    regional correlation lines."""
+    out = {}
+    for line in lines:
+        m = re.match(r"(\d+mer) correlation: +\[(.*)\]$", line) or \
+            re.match(r"regional corr: (\d+bp) \[(.*)\]$", line)
+        if m:
+            out[m[1]] = [float(v) for v in m[2].split(",")]
+    return out
+
+
 @pytest.mark.parametrize("fused", [False, True])
 def test_predict_matches_jax(triple, fused, capsys):
     common = dict(test_data=triple["bed"], ref_genome=triple["fasta"],
                   model_path=triple["model"],
                   model_config_path=triple["config"],
                   calibrator_path=triple["calibrator"], pred_batch_size=32,
-                  fused_inference=fused)
+                  fused_inference=fused, kmer_corr=[3, 5],
+                  region_corr=[1000])
     base = triple["base"]
     j_lines, t_lines = [], []
     j_run_predict(JOptions(pred_file=str(base / f"jax{fused}.tsv.gz"),
@@ -108,10 +123,12 @@ def test_predict_matches_jax(triple, fused, capsys):
             "--test_data", triple["bed"], "--model_path", triple["model"],
             "--model_config_path", triple["config"], "--calibrator_path",
             triple["calibrator"], "--pred_batch_size", "32",
-            "--pred_file", cli_file] + (["--fused_inference"] if fused
+            "--pred_file", cli_file, "--kmer_corr", "3", "5",
+            "--region_corr", "1000"] + (["--fused_inference"] if fused
                                         else [])
     assert port_cli(argv) == 0
-    cli_loss = _mean_loss(capsys.readouterr().out.splitlines())
+    cli_lines = capsys.readouterr().out.splitlines()
+    cli_loss = _mean_loss(cli_lines)
 
     jdf = pd.read_csv(base / f"jax{fused}.tsv.gz", sep="\t")
     prob_cols = [f"prob{i}" for i in range(4)]
@@ -127,6 +144,16 @@ def test_predict_matches_jax(triple, fused, capsys):
     np.testing.assert_allclose(
         np.stack([out[c] for c in prob_cols], 1).sum(1), 1, atol=1e-6)
     j_loss = _mean_loss(j_lines)
+    # the correlations of the two packages' probabilities (1e-7 apart)
+    j_corr = _correlations(j_lines)
+    assert list(j_corr) == ["3mer", "5mer", "1000bp"]
+    for lines in (t_lines, cli_lines):
+        corr = _correlations(lines)
+        assert list(corr) == list(j_corr)
+        for name in corr:
+            np.testing.assert_allclose(corr[name], j_corr[name], rtol=0,
+                                       atol=1e-6)
+            assert np.isfinite(corr[name]).all()
     assert abs(_mean_loss(t_lines) - j_loss) <= 1e-5 * abs(j_loss)
     assert abs(cli_loss - j_loss) <= 1e-5 * abs(j_loss)
     with gzip.open(base / f"port{fused}.tsv.gz", "rt") as fh:

@@ -123,7 +123,7 @@ def test_calibrate_prob_matches_jax(name):
     (["--trial_executor", "process"], 8), (["--bf16"], 10),
     (["--steps_per_dispatch", "8"], 10), (["--resident_data", "on"], 10),
     (["--with_h5"], 4), (["--model_no", "1"], 6), (["--bw_paths", "x"], 6),
-    (["--poisson_calib"], 3), (["--save_valid_preds"], 3),
+    (["--dp_devices", "2"], 10), (["--profile_dir", "prof"], 10),
     (["--trial_ensemble", "auto"], 8), (["--distal_order", "2"], 6)])
 def test_cli_train_flags_not_ported_raise(flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):

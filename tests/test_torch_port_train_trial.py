@@ -1,8 +1,10 @@
 """One epoch of the port's ``train_trial`` against the JAX package's on
-a tiny synthetic set, the batches both draw, and train -> get_best_model
--> predict through the port's CLI (CPU, fused stem with the plain
-versions of K2/K3).  Every dropout is 0: Flax and torch draw their
+a tiny synthetic set (with its k-mer and regional evaluation, exactly
+when both tails see the same probabilities), the batches both draw, and
+train -> get_best_model -> predict through the port's CLI (CPU, fused
+stem with the plain versions of K2/K3).  Every dropout is 0: Flax and torch draw their
 dropout masks from different generators."""
+import gzip
 import os
 import pickle
 
@@ -18,6 +20,14 @@ from mural_tpu_torch.train import loop
 from mural_tpu_torch.train.checkpoint import load_calibrator
 from mural_tpu_torch.utils.convert import state_dict_from_jax
 from test_torch_port_train import CONFIG, _rel
+
+# relative tolerance of one epoch's regional score, port against JAX
+SCORE_TOL = 1e-4
+# the epoch tail's evaluation lines of the uncalibrated and the
+# Poisson-calibrated probabilities (the FullDirichlet fits differ)
+_EVAL_LINES = ("mer correlation - all", "after Poisson_cal",
+               "regional corr (validation):", "corr_list: ",
+               "regional score: ", "n_regions", "Warning: too")
 
 
 def _write_data(base, rng, n_per_strand=480):
@@ -130,7 +140,10 @@ def test_train_trial_one_epoch_matches_jax(data, monkeypatch):
     assert _rel(tm["loss"], jm["loss"]) <= 1e-4
     assert _rel(tm["fdiri_loss"], jm["fdiri_loss"]) <= 1e-3
     assert tm["total_params"] == jm["total_params"]
-    assert np.isnan(tm["score"])
+    # the regional score sums (1 - r)^2 over k-mer correlations of 60-site
+    # regions, so it follows the two trainers' probabilities more closely
+    # than the loss does: measured 3.4e-6 relative apart on this epoch
+    assert _rel(tm["score"], jm["score"]) <= SCORE_TOL
     cal_t = load_calibrator(os.path.join(tdir, "checkpoint_0",
                                          "model.fdiri_cal.pkl"))
     with open(os.path.join(jdir, "checkpoint_0", "model.fdiri_cal.pkl"),
@@ -145,6 +158,52 @@ def test_train_trial_one_epoch_matches_jax(data, monkeypatch):
                                "model.config.pkl"), "rb") as fh:
             saved.append(pickle.load(fh))
     assert saved[0] == saved[1]
+
+
+def test_epoch_tail_on_jax_probabilities(data, monkeypatch, capsys):
+    """--save_valid_preds and --poisson_calib, with the port's epoch tail
+    fed the JAX run's validation probabilities (the port's validation
+    softmax is patched to return them): the same score to 1e-12, the
+    same evaluation lines, the same trial files, and the same
+    ``model.valid_preds.tsv.gz`` (decompressed)."""
+    base, fasta, bed = data
+    captured = []
+    j_calibrate = j_loop.calibrate_prob
+
+    def capture(probs, *a, **kw):
+        captured.append(np.array(probs))
+        return j_calibrate(probs, *a, **kw)
+
+    monkeypatch.setattr(j_loop, "calibrate_prob", capture)
+    common = dict(train_data=bed, ref_genome=fasta, epochs=1,
+                  valid_ratio=0.5, split_seed=0, rng_seed=1,
+                  save_valid_preds=True, poisson_calib=True)
+    jdir, tdir = str(base / "jax_tail"), str(base / "port_tail")
+    capsys.readouterr()
+    jm = j_loop.train_trial(CONFIG, j_loop.TrainOptions(
+        trial_dir=jdir, resident="off", steps_per_dispatch=1, **common),
+        "snv")
+    j_out = capsys.readouterr().out
+    (probs,) = captured
+    monkeypatch.setattr(loop, "_softmax", lambda logits: probs)
+    tm = loop.train_trial(CONFIG, loop.TrainOptions(
+        trial_dir=tdir, device="cpu", **common), "snv")
+    t_out = capsys.readouterr().out
+    assert abs(tm["score"] - jm["score"]) <= 1e-12 * abs(jm["score"])
+    assert np.isfinite(tm["score"])
+    lines = [[line for line in out.splitlines() if line.startswith(
+        _EVAL_LINES) or any(s in line for s in _EVAL_LINES[:2])]
+        for out in (t_out, j_out)]
+    assert lines[0] == lines[1]
+    assert sum("after Poisson_cal" in line for line in lines[0]) == 7
+    assert _trial_files(tdir) == _trial_files(jdir)
+    assert "checkpoint_0/model.valid_preds.tsv.gz" in _trial_files(tdir)
+    preds = []
+    for trial_dir in (tdir, jdir):
+        with gzip.open(os.path.join(trial_dir, "checkpoint_0",
+                                    "model.valid_preds.tsv.gz"), "rb") as fh:
+            preds.append(fh.read())
+    assert preds[0] == preds[1]
 
 
 def test_cli_train_get_best_model_predict(data, monkeypatch, capsys):
@@ -172,6 +231,7 @@ def test_cli_train_get_best_model_predict(data, monkeypatch, capsys):
                 ).read_text().splitlines()
     assert progress[0] == "epoch,loss,fdiri_loss,after_min_loss,score," \
                           "total_params" and len(progress) == 3
+    assert all(np.isfinite(float(row.split(",")[4])) for row in progress[1:])
     capsys.readouterr()
     assert port_cli(["get_best_model", "--trial_path", "results/cli"]) == 0
     best, loss = capsys.readouterr().out.splitlines()[-1].split("\t")
