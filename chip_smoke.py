@@ -9,9 +9,10 @@ Phases (any failure raises and the script exits non-zero):
 1. setup: print the card's name and power limit, build the CUDA kernels
    (``mural_tpu_torch/ops/csrc/*.cu``: K1 ``code_conv1d``, K2/K3
    ``code_conv_pool``) with one nvcc each, all started together, write a
-   synthetic FASTA and two BEDs from ``--seed``, and write a checkpoint
-   triple with the port itself: SNVNet2 at the CLI default widths with
-   seeded weights, randomised BN statistics and a seeded FullDirichlet
+   synthetic FASTA and two SNV and two INDEL BEDs from ``--seed``, and
+   write two checkpoint triples with the port itself: SNVNet2 and the
+   ``--use_reverse`` INDEL U-Net at the CLI default widths with seeded
+   weights, randomised BN statistics and a seeded FullDirichlet
    calibrator;
 2. K1 against its plain PyTorch version on the card, bit-exact (max
    |diff| == 0): the predict path's shapes (B=4096 at L=401 and the
@@ -62,7 +63,21 @@ Phases (any failure raises and the script exits non-zero):
    ``calc_scaling_factor --genomewide_mu 1e-8 --do_scaling`` and ``scale``
    with the same factor: the two scaled files equal line for line,
    probabilities summing to 1 within ``%.4g``; the seconds of each;
-9. a JSON line of the kernels and a timing line.
+9. the INDEL path, which runs none of the port's kernels: the U-Net at
+   the ``mural_indel train`` defaults (8000-bp windows, down_list
+   1,4,5,5,5,2, 8 channels, k 7) on the card against the CPU for both
+   ``use_reverse`` variants (B=4, <= 1e-4), its forward's device ms at
+   B=256 and 1024 and top 8 device ops; the host's batch build of B=128
+   windows, two train steps of 16 on the card against the CPU (<= 1e-4,
+   dropout 0), one B=128 step's host ms, the host's time to issue it,
+   its device-busy share and top ops; then ``mural_indel train
+   --use_reverse --epochs 1`` on ``INDEL_TRAIN`` sites (triple, finite
+   metrics, ``progress.csv``), ``get_best_model``, ``predict
+   --pred_batch_size 1024`` of ``INDEL_SITES`` sites (``prob0..prob7``
+   summing to 1, sites/s)
+   and ``evaluate --kmer_length 4`` on its TSV; K1, K2 and K3 launched
+   0 times in the phase;
+10. a JSON line of the kernels and a timing line.
 
 The last line of standard output is the device record
 ``{"ok": true, "device": {...}}``.  ``--only_kernels`` runs the setup
@@ -112,6 +127,20 @@ CONFIG = dict(
     local_dropout=0.1, distal_fc_dropout=0.25, distal_radius=200,
     CNN_kernel_size=3, CNN_out_channels=32, segment_center=300000,
     distal_order=1, n_cont=0, emb_dims=[(65, 2)] * 13)
+# the mural_indel train defaults: the reference recipe of the shipped
+# INDEL model (8000-bp windows, down_list 1,4,5,5,5,2, 8 channels, k 7,
+# use_reverse); local_radius 6 and local_order 1 feed the evaluation only
+INDEL_CONFIG = dict(
+    model_no=0, n_class=8, local_radius=6, local_order=1,
+    distal_radius=4000, CNN_kernel_size=7, CNN_out_channels=8,
+    down_list=[1, 4, 5, 5, 5, 2], use_reverse=True, segment_center=300000,
+    distal_order=1, n_cont=0, emb_dims=[(4, 1)] * 12)
+INDEL_PRED_BATCH = 1024
+INDEL_SITES = 50_000    # sites to predict
+INDEL_TRAIN = 20_000    # sites to train on
+INDEL_TSV_HEADER = ["chrom", "start", "end", "strand", "mut_type"] + [
+    f"prob{i}" for i in range(8)]
+CHROMS = {"chr1": 3_000_000, "chr2": 1_000_000}
 # (name, pool kernel, pool padding) of each tower's stem, tower 2 first
 STEMS = (("tower 2 (Bx401)", 15, 7), ("tower 1 (Bx201 crop)", 3, 1))
 
@@ -184,7 +213,7 @@ def write_inputs(work: Path, rng: np.random.Generator, n_sites: int,
     to predict and one to train on."""
     from mural_tpu_torch.genome.fasta import decode_sequence
     fasta = work / "seq.fa"
-    chroms = {"chr1": 3_000_000, "chr2": 1_000_000}
+    chroms = CHROMS
     beds = {work / "sites.bed": n_sites, work / "train.bed": n_train}
     lines = {bed: [] for bed in beds}
     with open(fasta, "w") as fh:
@@ -559,15 +588,16 @@ def phase_model(model, dev, gen):
             "unfused_forward_ms": cuda_ms(
                 lambda: model(cat, one_hot_from_codes(codes)), iters=10),
             "fused_forward_trace": forward_trace(
-                lambda: snv2_fused_forward(folded, cat, codes))}
+                lambda: snv2_fused_forward(folded, cat, codes),
+                f"fused forward (B={BATCH})")}
     return max(e, e_cpu), fwd_ms
 
 
-def forward_trace(fn, top=8):
-    """The device ops of one call of ``fn`` (a fused forward) from
-    torch.profiler: their summed device ms, the ``top`` ops by time
-    (name, ms, calls), and the op that runs after each K1 launch (what
-    reads K1's output, and whether a copy does)."""
+def forward_trace(fn, what, top=8):
+    """The device ops of one call of ``fn`` (``what``: a forward or a train
+    step) from torch.profiler: their summed device ms, the ``top`` ops by
+    time (name, ms, calls), and the op that runs after each K1 launch
+    (what reads K1's output, and whether a copy does)."""
     events = device_events(fn)
     by_name = {}
     for name, _, us in events:
@@ -582,8 +612,8 @@ def forward_trace(fn, top=8):
                       "ms": events[i + 1][2] / 1e3}
                      for i, (name, _, _) in enumerate(events[:-1])
                      if "code_conv1d_kernel" in name]}
-    log(f"fused forward (B={BATCH}), one call: {trace['device_ms']:.4f} ms "
-        f"of device ops; the top {top} by time:")
+    log(f"{what}, one call: {trace['device_ms']:.4f} ms of device ops; "
+        f"the top {top} by time:")
     for op in trace["top"]:
         log(f"  {op['ms']:.4f} ms  {op['calls']:3d} calls  {op['name']}")
     for op in trace["after_k1"]:
@@ -1070,6 +1100,305 @@ def phase_evaluate(work, fasta, pred_file):
                      for name, rows in corrs.items()}}
 
 
+def write_indel_inputs(work: Path, rng: np.random.Generator, n_sites: int,
+                       n_train: int):
+    """Two sorted INDEL BEDs on the synthetic genome (any base, either
+    strand, labels uniform over 0..7): one to predict, one to train on."""
+    out = []
+    for name, total in (("indel_sites.bed", n_sites),
+                        ("indel_train.bed", n_train)):
+        rows = []
+        for chrom, n in CHROMS.items():
+            k = total * 3 // 4 if chrom == "chr1" else total - total * 3 // 4
+            pos = np.sort(rng.choice(n, k, replace=False))
+            strand = rng.choice(["+", "-"], k)
+            labels = rng.integers(0, 8, size=k)
+            rows += [f"{chrom}\t{p}\t{p + 1}\t.\t{y}\t{s}"
+                     for p, s, y in zip(pos, strand, labels)]
+        (work / name).write_text("\n".join(rows) + "\n")
+        out.append(str(work / name))
+    return out
+
+
+def indel_model(seed, use_reverse=True):
+    """The U-Net at the CLI defaults with the reference init from ``seed``
+    and randomised BN statistics and affine parameters (within 25% of
+    their initial values, so the 28 BNs in a row keep unit scale)."""
+    import torch
+    from mural_tpu_torch.models.init import init_weights
+    from mural_tpu_torch.models.registry import build_model_from_config
+    gen = torch.Generator().manual_seed(seed)
+    cfg = dict(INDEL_CONFIG, use_reverse=use_reverse)
+    model = init_weights(build_model_from_config(cfg, 0, "indel"), gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm1d):
+                n = m.num_features
+                m.weight.copy_(0.8 + 0.45 * torch.rand(n, generator=gen))
+                m.bias.copy_(0.2 * torch.randn(n, generator=gen))
+                m.running_mean.copy_(0.2 * torch.randn(n, generator=gen))
+                m.running_var.copy_(0.8 + 0.45 * torch.rand(n,
+                                                            generator=gen))
+    return model
+
+
+def write_indel_checkpoint(work: Path, seed: int):
+    """A ``--use_reverse`` U-Net triple at the CLI defaults, made by the
+    port, with a seeded 8-class FullDirichlet calibrator."""
+    from mural_tpu_torch.calibrate.dirichlet import FullDirichletCalibrator
+    from mural_tpu_torch.train.checkpoint import save_checkpoint
+    model = indel_model(seed)
+    noise = np.random.default_rng(seed).normal(size=(8, 9))
+    w = np.hstack([np.eye(8), np.zeros((8, 1))]) + 0.1 * noise
+    path = str(work / "indel_checkpoint_0" / "model")
+    save_checkpoint(path, model, INDEL_CONFIG,
+                    calibrator=FullDirichletCalibrator.from_weights(w))
+    return path
+
+
+def kernel_launches():
+    """(K1, K2, K3) launch counts since their last reset."""
+    from mural_tpu_torch.ops import fused_code_conv as fcc
+    from mural_tpu_torch.ops import fused_train_stem as fts
+    return fcc.LAUNCHES, fts.FWD_LAUNCHES, fts.BWD_LAUNCHES
+
+
+def counted(fn, *args):
+    """``fn(*args)`` with K1-K3 counted from 0; returns (result, counts)."""
+    from mural_tpu_torch.ops import fused_code_conv as fcc
+    from mural_tpu_torch.ops import fused_train_stem as fts
+    fcc.LAUNCHES = fts.FWD_LAUNCHES = fts.BWD_LAUNCHES = 0
+    out = fn(*args)
+    return out, kernel_launches()
+
+
+def phase_indel_forward(model_path, dev, seed):
+    """The card's U-Net forward against the CPU's for both ``use_reverse``
+    variants (B=4, eval mode), the device ms of one forward (one-hot
+    included) at B=256 and B=1024, and the top device ops of one forward
+    at B=1024."""
+    import torch
+    from mural_tpu_torch.models.layers import one_hot_from_codes
+    from mural_tpu_torch.models.registry import build_model_from_config
+    from mural_tpu_torch.train.checkpoint import load_checkpoint
+    gen = torch.Generator().manual_seed(seed + 3)
+    width = 2 * INDEL_CONFIG["distal_radius"]
+    codes = torch.randint(0, 4, (INDEL_PRED_BATCH, width), generator=gen,
+                          dtype=torch.uint8)
+    codes[torch.rand(codes.shape, generator=gen) < 1e-3] = 14
+    model = load_checkpoint(model_path, build_model_from_config(
+        INDEL_CONFIG, 0, "indel"))
+    errs = {}
+    with torch.inference_mode():
+        for use_reverse, m in ((True, model),
+                               (False, indel_model(seed + 4, False))):
+            m = m.eval()
+            cpu = m(None, one_hot_from_codes(codes[:4]))
+            card = copy.deepcopy(m).to(dev)(
+                None, one_hot_from_codes(codes[:4].to(dev))).cpu()
+            errs[use_reverse] = ((card - cpu).abs().max()
+                                 / max(1.0, cpu.abs().max())).item()
+            log(f"U-Net card vs CPU forward (B=4, use_reverse "
+                f"{use_reverse}): max |diff| {errs[use_reverse]:.3g} of "
+                f"max(1, max|out|), outputs {cpu[0].tolist()}")
+        model = model.to(dev)
+        big = codes.to(dev)
+        fwd = {f"forward_ms_b{B}": cuda_ms(
+            lambda B=B: model(None, one_hot_from_codes(big[:B])), iters=10)
+            for B in (256, INDEL_PRED_BATCH)}
+        fwd["forward_trace_b1024"] = forward_trace(
+            lambda: model(None, one_hot_from_codes(big)),
+            f"U-Net forward (B={INDEL_PRED_BATCH})")
+    log("U-Net forward (CUDA events, one-hot included): "
+        + json.dumps({k: v for k, v in fwd.items() if "trace" not in k}))
+    check_all("INDEL U-Net forward", {
+        "card vs CPU within 1e-4, both use_reverse variants":
+            all(e <= TOL_MODEL for e in errs.values())})
+    return {"card_vs_cpu": errs, **fwd}
+
+
+def phase_indel_step(dev, seed, fasta, train_bed):
+    """Host batch build of B=128 INDEL batches from the training BED;
+    two unfused steps of 16 on the card against the CPU (dropout 0); one
+    B=128 step's host ms, device busy share and top device ops."""
+    import torch
+    from mural_tpu_torch.data.batcher import segment_pool_batches
+    from mural_tpu_torch.data.dataset import prepare_dataset
+    from mural_tpu_torch.train.steps import model_input, train_step
+    cfg = INDEL_CONFIG
+    ds = prepare_dataset(train_bed, fasta, central_bp=cfg["segment_center"],
+                         local_radius=cfg["local_radius"],
+                         local_order=cfg["local_order"],
+                         distal_radius=cfg["distal_radius"],
+                         model_type="indel")
+    batches = []
+    t0 = time.perf_counter()
+    for batch in segment_pool_batches(ds, 10, TRAIN_BATCH, shuffle=True,
+                                      rng=np.random.default_rng(seed)):
+        batches.append((torch.from_numpy(batch.y).long(),
+                        torch.from_numpy(batch.cat).long(),
+                        torch.from_numpy(batch.distal)))
+        if len(batches) == 20:
+            break
+    build_ms = (time.perf_counter() - t0) / len(batches) * 1e3
+    log(f"INDEL host batch build (B={TRAIN_BATCH}, W={ds.distal_width}, "
+        f"dataset gather): {build_ms:.3f} ms per batch")
+    model = indel_model(seed + 5)
+    model.out_fc[1].p = 0.0
+    small = [(y[:16], cat[:16], codes[:16]) for y, cat, codes in batches[:2]]
+    card = run_steps(make_state(model, dev, 2), small, dev, False)
+    cpu = run_steps(make_state(model, torch.device("cpu"), 2), small,
+                    torch.device("cpu"), False)
+    rel_cpu = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    log(f"U-Net train steps, card vs CPU (2 steps of 16): losses {card} vs "
+        f"{cpu}, max rel diff {rel_cpu:.3g}")
+
+    state = make_state(model, dev, 40)
+    batch = [(y.to(dev), cat.to(dev), model_input(codes.to(dev), False))
+             for y, cat, codes in batches[:5]]
+    mask = torch.ones(TRAIN_BATCH, device=dev)
+
+    def steps(n):
+        for i in range(n):
+            y, cat, distal = batch[i % len(batch)]
+            train_step(state, y, cat, distal, mask)
+        torch.cuda.synchronize()
+
+    steps(3)
+    t0 = time.perf_counter()
+    steps(10)
+    wall_ms = (time.perf_counter() - t0) / 10 * 1e3
+    # the host's time to issue one step onto an idle card
+    t0 = time.perf_counter()
+    train_step(state, *batch[0], mask)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = device_busy_ms(lambda: steps(5)) / 5
+    timing = {"host_batch_build_ms": build_ms, "step_ms": wall_ms,
+              "host_enqueue_ms": enqueue_ms, "device_busy_ms": busy_ms,
+              "device_busy_share": busy_ms / wall_ms if busy_ms else None}
+    log(f"U-Net train step at B={TRAIN_BATCH} (host clock, device busy "
+        "from torch.profiler): " + json.dumps(timing))
+    timing["trace"] = forward_trace(lambda: steps(1),
+                                    f"U-Net train step (B={TRAIN_BATCH})")
+    check_all("INDEL train steps", {
+        "card vs CPU per-step loss within 1e-4": rel_cpu <= TOL_STEP,
+        "finite losses": bool(np.isfinite(card).all())})
+    return {"card_vs_cpu_rel": rel_cpu, **timing}
+
+
+def phase_indel_cli(work, fasta, bed, train_bed, cuda_id):
+    """mural_indel train --use_reverse --epochs 1, get_best_model, predict
+    --pred_batch_size 1024 on the best triple and evaluate --kmer_length 4
+    on its TSV, all through the CLI."""
+    from mural_tpu_torch.cli.mural_indel import main as cli
+    # cli_train counts K2/K3 from 0 and cli_predict K1: K1 is read here
+    # before predict resets it
+    run = cli_train(cli, work, fasta, train_bed, "indel", cuda_id,
+                    ["--use_reverse", "--epochs", "1"])
+    k1_train = kernel_launches()[0]
+    trial, epochs = run["trial"], run["epochs"]
+    path = trial / "checkpoint_0" / "epoch_0_metrics.txt"
+    metrics = (dict(line.split(": ", 1) for line in
+                    path.read_text().splitlines()) if path.exists() else {})
+    progress = trial / "progress.csv"
+    rows = progress.read_text().splitlines() if progress.exists() else []
+    check_all("mural_indel train --use_reverse", {
+        "exit code 0": run["rc"] == 0,
+        "one epoch logged": len(epochs) == 1,
+        "checkpoint_0 holds the triple": all(
+            (trial / "checkpoint_0" / f).exists()
+            for f in ("model", "model.config.pkl", "model.fdiri_cal.pkl")),
+        "finite loss, fdiri_loss and score": all(
+            np.isfinite(float(metrics.get(k, "nan")))
+            for k in ("loss", "fdiri_loss", "score")),
+        "progress.csv has the epoch with a finite score":
+            len(rows) == 2 and rows[0].split(",")[4] == "score"
+            and np.isfinite(float(rows[1].split(",")[4])),
+    })
+    log(f"mural_indel train: {run['seconds']:.3f} s; epochs "
+        + json.dumps(epochs))
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc_best = cli(["get_best_model", "--trial_path",
+                       str(work / "results" / "indel")])
+    log(out.getvalue().rstrip())
+    best = os.path.normpath(os.path.join(
+        work, out.getvalue().splitlines()[1].split("\t")[0]))
+    model_path = os.path.join(best, "model")
+    pred_file = str(work / "indel_pred.tsv.gz")
+    pred = cli_predict(cli, [
+        "--ref_genome", fasta, "--test_data", bed,
+        "--model_path", model_path,
+        "--model_config_path", model_path + ".config.pkl",
+        "--calibrator_path", model_path + ".fdiri_cal.pkl",
+        "--pred_batch_size", str(INDEL_PRED_BATCH), "--cuda_id",
+        str(cuda_id), "--pred_time_view"], pred_file)
+    pred["sites_per_s"] = INDEL_SITES / pred["seconds"]
+    header, keys, probs = pred["tsv"]
+    log(f"mural_indel predict: {pred['seconds']:.3f} s, "
+        f"{pred['sites_per_s']:.1f} sites/s")
+
+    rc_ev, ev_s, _ = run_cli(cli, ["evaluate", "--pred_file", pred_file,
+                                   "--ref_genome", fasta, "--out_prefix",
+                                   str(work / "indel_ev"), "--kmer_length",
+                                   "4"])
+    log(f"mural_indel evaluate --kmer_length 4: {ev_s:.3f} s")
+    k1, k2, k3 = kernel_launches()
+    launches = (k1_train + k1, k2, k3)
+    corr_files = [work / f"indel_ev.{tag}.corr.txt"
+                  for tag in ("4-mer", "100Kb")]
+    corrs = [read_corr(f) for f in corr_files if f.exists()]
+    check_all("mural_indel get_best_model -> predict -> evaluate", {
+        "exit codes 0": rc_best == 0 and pred["rc"] == 0 and rc_ev == 0,
+        "best checkpoint is the trial's":
+            os.path.dirname(best) == str(trial),
+        "TSV schema with prob0..prob7": header == INDEL_TSV_HEADER,
+        f"{INDEL_SITES} rows": len(keys) == INDEL_SITES,
+        # Poisson calibration (always on for INDEL) keeps the sum at 1
+        # but not the signs; each printed value is within 5e-4 of itself
+        "probabilities finite and summing to 1 within %.4g": bool(
+            np.isfinite(probs).all()
+            and np.all(np.abs(probs.sum(1) - 1)
+                       <= 5e-4 * np.abs(probs).sum(1) + 1e-6)),
+        "4-mer and 100Kb files, each corr.txt with 7 subtypes": len(
+            corrs) == 2 and all(
+            (work / f"indel_ev.{tag}.mut_rates.tsv").exists()
+            for tag in ("4-mer", "100Kb"))
+            and all([r[1] for r in rows] == list(range(1, 8))
+                    for rows in corrs),
+        "finite 4-mer correlations": bool(corrs) and all(
+            np.isfinite(r[2]) for r in corrs[0]),
+    })
+    return {"train_s": run["seconds"], "train_epochs": epochs,
+            "predict_s": pred["seconds"],
+            "predict_sites_per_s": pred["sites_per_s"],
+            "evaluate_s": ev_s,
+            "corr_4mer": [r[2] for r in corrs[0]] if corrs else None,
+            "launches": launches}
+
+
+def phase_indel(work, fasta, model_path, beds, dev, seed):
+    """The INDEL path: forward, train step and CLI, with K1-K3 counted
+    from 0 around each part; none of them may launch."""
+    bed, train_bed = beds
+    out, launches = {}, []
+    for name, fn, args in (
+            ("forward", phase_indel_forward, (model_path, dev, seed)),
+            ("train_step", phase_indel_step, (dev, seed, fasta, train_bed)),
+            ("cli", phase_indel_cli, (work, fasta, bed, train_bed,
+                                      dev.index or 0))):
+        out[name], counts = counted(fn, *args)
+        # the CLI part resets the counters itself and returns its own
+        launches.append(out[name].pop("launches", counts))
+    total = [sum(c) for c in zip(*launches)]
+    log(f"INDEL phase, K1/K2/K3 launches: {total}")
+    check_all("INDEL phase", {"K1, K2 and K3 launched 0 times":
+                              total == [0, 0, 0]})
+    out["k1_k2_k3_launches"] = total
+    return out
+
+
 def kernel_records(k1, k23, k1_launches, train_on):
     """The kernels' JSON records from phases 2-3; ``launches`` come from
     the main path's runs (None when it did not run)."""
@@ -1158,9 +1487,13 @@ def main(argv=None) -> int:
     if not args.only_kernels:
         fasta, bed, train_bed = write_inputs(work, rng, args.n_sites,
                                              args.n_train)
+        indel_beds = write_indel_inputs(work, rng, INDEL_SITES, INDEL_TRAIN)
+        indel_path = write_indel_checkpoint(work, args.seed)
     model_path, model = write_checkpoint(work, args.seed)
-    log(f"synthetic inputs and checkpoint in {time.perf_counter() - t0:.2f}"
-        f" s ({args.n_sites} sites to predict, {args.n_train} to train)")
+    log(f"synthetic inputs and checkpoints in "
+        f"{time.perf_counter() - t0:.2f} s (SNV: {args.n_sites} sites to "
+        f"predict, {args.n_train} to train; INDEL: {INDEL_SITES} "
+        f"and {INDEL_TRAIN})")
     phase_s = {}
 
     def timed(name, fn, *a):
@@ -1192,9 +1525,12 @@ def main(argv=None) -> int:
     # 8. evaluate and scale phase 6's predictions
     evaluation = timed("evaluate_scale", phase_evaluate, work, fasta,
                        str(work / "pred_fused.tsv.gz"))
+    # 9. the INDEL path (no kernel of the port on it)
+    indel = timed("indel", phase_indel, work, fasta, indel_path, indel_beds,
+                  dev, args.seed)
     shutil.rmtree(work, ignore_errors=True)
 
-    # 9. results
+    # 10. results
     log(json.dumps({"kernels": kernel_records(
         k1, k23, fused["launches"], train_on)}))
     log(json.dumps({
@@ -1212,7 +1548,10 @@ def main(argv=None) -> int:
         "evaluate_scale": evaluation,
         "train_fused_epochs": train_on["epochs"],
         "train_unfused_epochs": train_off["epochs"],
-        "n_sites": args.n_sites, "n_train": args.n_train, "batch": BATCH,
+        "indel": indel,
+        "n_sites": args.n_sites, "n_train": args.n_train,
+        "n_indel_sites": INDEL_SITES,
+        "n_indel_train": INDEL_TRAIN, "batch": BATCH,
         "train_batch": TRAIN_BATCH, "phase_s": phase_s,
         "total_s": time.perf_counter() - t_start}))
     log(card)

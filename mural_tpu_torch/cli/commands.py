@@ -181,33 +181,52 @@ def add_train_parser(subparsers, model_type: str):
     m.add_argument("--distal_order", type=int, metavar="INT", default=1,
                    help="Order of distal sequence encoding. Default: 1.")
     m.add_argument("--CNN_kernel_size", type=int, metavar="INT",
-                   default=[3], nargs="+",
+                   default=[3] if model_type == "snv" else [7], nargs="+",
                    help="Kernel size of the first convolution.")
     m.add_argument("--CNN_out_channels", type=int, metavar="INT",
-                   default=[32], nargs="+",
+                   default=[32] if model_type == "snv" else [8], nargs="+",
                    help="Output channels of the first convolution.")
-    m.add_argument("--model_no", type=int, metavar="INT", default=2,
-                   help="Model architecture: 0 local-only, 1 "
-                        "expanded-only, 2 combined (only 2 is ported). "
-                        "Default: 2.")
-    m.add_argument("--n_class", type=int, metavar="INT", default=4,
-                   help="Number of mutation classes. Default: 4.")
-    for flag, kind, default, text in (
-            ("--distal_radius", int, 200,
-             "Radius of the expanded (distal) region."),
-            ("--local_radius", int, 7, "Radius of the local region."),
-            ("--local_order", int, 3, "K-mer order for local sequences."),
-            ("--local_hidden1_size", int, 150,
-             "First FC layer size of the local branch."),
-            ("--local_hidden2_size", int, 0,
-             "Second FC layer size (0 -> hidden1 // 2)."),
-            ("--emb_dropout", float, 0.1, "Dropout of the embedding layer."),
-            ("--local_dropout", float, 0.1, "Dropout of local FC layers."),
-            ("--distal_fc_dropout", float, 0.25,
-             "Dropout of the distal FC layer.")):
-        m.add_argument(flag, type=kind,
-                       metavar="INT" if kind is int else "FLOAT",
-                       default=[default], nargs="+", help=text)
+    if model_type == "snv":
+        m.add_argument("--model_no", type=int, metavar="INT", default=2,
+                       help="Model architecture: 0 local-only, 1 "
+                            "expanded-only, 2 combined (only 2 is "
+                            "ported). Default: 2.")
+        m.add_argument("--n_class", type=int, metavar="INT", default=4,
+                       help="Number of mutation classes. Default: 4.")
+        for flag, kind, default, text in (
+                ("--distal_radius", int, 200,
+                 "Radius of the expanded (distal) region."),
+                ("--local_radius", int, 7, "Radius of the local region."),
+                ("--local_order", int, 3,
+                 "K-mer order for local sequences."),
+                ("--local_hidden1_size", int, 150,
+                 "First FC layer size of the local branch."),
+                ("--local_hidden2_size", int, 0,
+                 "Second FC layer size (0 -> hidden1 // 2)."),
+                ("--emb_dropout", float, 0.1,
+                 "Dropout of the embedding layer."),
+                ("--local_dropout", float, 0.1,
+                 "Dropout of local FC layers."),
+                ("--distal_fc_dropout", float, 0.25,
+                 "Dropout of the distal FC layer.")):
+            m.add_argument(flag, type=kind,
+                           metavar="INT" if kind is int else "FLOAT",
+                           default=[default], nargs="+", help=text)
+    else:
+        m.add_argument("--model_no", type=int, metavar="INT", default=0,
+                       help="INDEL model architecture (0: U-Net).")
+        m.add_argument("--distal_radius", type=int, metavar="INT",
+                       default=[4000], nargs="+",
+                       help="Radius of the expanded region.")
+        m.add_argument("--n_class", type=int, metavar="INT", default=8,
+                       help="Number of INDEL classes. Default: 8.")
+        m.add_argument("--down_list", type=int, metavar="INT",
+                       default=[1, 4, 5, 5, 5, 2], nargs="+",
+                       help="Per-level downsampling strides of the "
+                            "U-Net encoder.")
+        m.add_argument("--use_reverse", default=False,
+                       action="store_true",
+                       help="Strand-symmetrised stem (insertion models).")
     c = p.add_argument_group("Calibration-related arguments")
     c.add_argument("--poisson_calib", default=False, action="store_true",
                    help="Poisson-based probability calibration of the "

@@ -1,4 +1,5 @@
-"""CLI dispatch for mural_snv (counterpart of ``mural_tpu/cli/main.py``).
+"""CLI dispatch for mural_snv and mural_indel (counterpart of
+``mural_tpu/cli/main.py``).
 
 ``train`` (standalone trials, one after another), ``predict``,
 ``evaluate``, ``scale``, ``calc_scaling_factor`` and ``get_best_model``
@@ -39,11 +40,10 @@ def _abspath(p):
     return os.path.abspath(p) if p else p
 
 
-def _build_config(args) -> dict:
+def _build_config(args, model_type: str) -> dict:
     """The standalone trial config: the first value of each list flag
     (``mural_tpu/cli/main.py:45-92``)."""
-    h2 = args.local_hidden2_size[0]
-    return {
+    config = {
         "segment_center": args.segment_center,
         "distal_radius": args.distal_radius[0],
         "CNN_kernel_size": args.CNN_kernel_size[0],
@@ -59,15 +59,34 @@ def _build_config(args) -> dict:
         "restart_lr": args.restart_lr,
         "min_lr": args.min_lr,
         "transfer_learning": False,
-        "local_radius": args.local_radius[0],
-        "local_order": args.local_order[0],
-        "local_hidden1_size": args.local_hidden1_size[0],
-        "local_hidden2_size": (h2 if h2 > 0
-                               else args.local_hidden1_size[0] // 2),
-        "emb_dropout": args.emb_dropout[0],
-        "distal_fc_dropout": args.distal_fc_dropout[0],
-        "local_dropout": args.local_dropout[0],
     }
+    if model_type == "snv":
+        h2 = args.local_hidden2_size[0]
+        config.update({
+            "local_radius": args.local_radius[0],
+            "local_order": args.local_order[0],
+            "local_hidden1_size": args.local_hidden1_size[0],
+            "local_hidden2_size": (h2 if h2 > 0
+                                   else args.local_hidden1_size[0] // 2),
+            "emb_dropout": args.emb_dropout[0],
+            "distal_fc_dropout": args.distal_fc_dropout[0],
+            "local_dropout": args.local_dropout[0],
+        })
+    else:
+        # the U-Net reads only the distal window; the local columns feed
+        # the k-mer evaluation
+        config.update({
+            "local_radius": 6,
+            "local_order": 1,
+            "local_hidden1_size": None,
+            "local_hidden2_size": None,
+            "emb_dropout": None,
+            "distal_fc_dropout": None,
+            "local_dropout": None,
+            "use_reverse": args.use_reverse,
+            "down_list": args.down_list,
+        })
+    return config
 
 
 def cmd_train(args, model_type: str) -> int:
@@ -118,7 +137,7 @@ def cmd_train(args, model_type: str) -> int:
     exp = ExperimentOptions(experiment_name=args.experiment_name,
                             n_trials=args.n_trials, epochs=args.epochs,
                             grace_period=args.grace_period)
-    run_experiment(_build_config(args), opts, model_type, exp)
+    run_experiment(_build_config(args, model_type), opts, model_type, exp)
     return 0
 
 
@@ -224,9 +243,6 @@ def main(model_type: str, argv=None) -> int:
         raise NotImplementedError(
             f"mural_{model_type} {argv[0]} is not ported yet "
             f"(ROADMAP.md item {_NOT_PORTED[argv[0]]})")
-    if model_type != "snv":
-        raise NotImplementedError(
-            "mural_indel is not ported yet (ROADMAP.md item 5)")
     parser = create_parser(model_type)
     args = parser.parse_args(argv)
     if not getattr(args, "func", None):

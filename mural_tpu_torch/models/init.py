@@ -27,7 +27,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             a = math.sqrt(6.0 / (in_c * k + out_c * k))
             m.weight.copy_(
                 torch.rand(m.weight.shape, generator=generator) * 2 * a - a)
-            m.bias.zero_()
+            if m.bias is not None:      # the U-Net's ConvBlocks have none
+                m.bias.zero_()
         elif isinstance(m, nn.Linear):
             std = math.sqrt(2.0 / m.weight.shape[1])
             m.weight.copy_(

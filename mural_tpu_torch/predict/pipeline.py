@@ -1,9 +1,10 @@
 """Prediction on a BED file (counterpart of
 ``mural_tpu/predict/pipeline.py:80-241``; ref MuRaL/scripts/run_predict.py).
 
-Rehydrates the architecture from ``model.config.pkl``, encodes the BED,
-runs batched inference on the device, applies the saved calibrator
-and/or Poisson calibration, writes the reference's TSV schema
+Rehydrates the architecture (SNVNet2 or the INDEL U-Net) from
+``model.config.pkl``, encodes the BED, runs batched inference on the
+device, applies the saved calibrator and/or Poisson calibration (always
+for INDEL), writes the reference's TSV schema
 ``chrom start end strand mut_type prob0..N`` sorted by (chrom, start)
 with ``%.4g`` floats (gzip when the path ends in ``.gz``), and prints the
 k-mer (``--kmer_corr``) and regional (``--region_corr``) correlations.
@@ -101,7 +102,11 @@ def run_predict(opts: PredictOptions, model_type: str = "snv",
     load_checkpoint(opts.model_path, model)
     model.to(device).eval()
 
-    if opts.fused_inference:
+    use_fused = opts.fused_inference and model_type == "snv"
+    if opts.fused_inference and not use_fused:
+        printer("NOTE: --fused_inference only supports SNV model_no 2 "
+                "without continuous features; using the standard path.")
+    if use_fused:
         from mural_tpu_torch.ops.fused_inference import (fold_snv2,
                                                          snv2_fused_forward)
         folded = fold_snv2(model)

@@ -2,7 +2,8 @@
 ``mural_tpu/train/loop.py``; ref MuRaL/training.py:45-567).
 
 dataset build -> segment-level train/validation split (``split_seed``)
--> emb_dims -> SNVNet2 build + the reference init from ``rng_seed`` ->
+-> emb_dims -> model build (SNVNet2 or the INDEL U-Net) + the reference
+init from ``rng_seed`` ->
 weight_decay_auto -> optimizer and LR schedule -> epochs of train steps
 on host-built batches -> per epoch: validation, FullDirichlet fit,
 k-mer and regional evaluation (whose regional score is the metrics'
@@ -37,7 +38,7 @@ from mural_tpu_torch.device import resolve_device, to_device
 from mural_tpu_torch.evaluation.evaluator import Evaluator
 from mural_tpu_torch.genome.fasta import Genome
 from mural_tpu_torch.models.init import init_weights
-from mural_tpu_torch.models.registry import build_model
+from mural_tpu_torch.models.registry import build_model, check_model_no
 from mural_tpu_torch.train.checkpoint import save_checkpoint
 from mural_tpu_torch.train.early_stopping import EarlyStopping
 from mural_tpu_torch.train.optim import (LRSchedule, ReduceLROnPlateau,
@@ -85,10 +86,11 @@ class TrainOptions:
 
 def check_ported(opts: TrainOptions, model_type: str = "snv") -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP.md item of each
-    option this slice does not run."""
+    option this slice does not run.  ``--model_no`` is checked here too,
+    before any trial starts: ``build_model`` refuses it only inside a
+    trial, whose error goes to its error.txt while the run carries on."""
+    check_model_no(opts.model_no, model_type)
     not_ported = [
-        (model_type != "snv", "mural_indel", 5),
-        (opts.model_no != 2, f"--model_no {opts.model_no}", 6),
         (opts.bw_paths, "--bw_paths", 6),
         (opts.distal_order != 1, f"--distal_order {opts.distal_order}", 6),
         (opts.with_h5, "--with_h5", 4),
@@ -214,7 +216,10 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
               "n_class": opts.n_class, "distal_order": opts.distal_order,
               "in_channels": in_channels}
     model = build_model(opts.model_no, config, common, model_type)
-    use_fused_stem = opts.fused_stem == "on" and in_channels == 4
+    # the fused stem belongs to the SNV towers (the JAX package's rule,
+    # mural_tpu/train/loop.py:363-366); the U-Net runs unfused
+    use_fused_stem = (opts.fused_stem == "on" and model_type == "snv"
+                      and in_channels == 4)
     if use_fused_stem:
         printer("fused train stem: on (one-hot+BN+conv+pool as the CUDA "
                 "kernels K2/K3)")
@@ -273,7 +278,7 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
                                  poisson_calibrate(valid_probs),
                                  opts.n_class, calibra="Poisson",
                                  printer=printer))
-        kmer_list = [3, 5, 7]
+        kmer_list = [2, 4, 6] if model_type == "indel" else [3, 5, 7]
         for ev in evs:
             ev.evaluate_kmer(kmer_list)
         eval_s = time.time() - t_eval

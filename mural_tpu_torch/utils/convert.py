@@ -6,7 +6,8 @@ arrays under Flax names (what a ``mural_tpu`` msgpack checkpoint holds).
 Conv kernels go from Flax (k, in, out) to torch (out, in, k), dense
 kernels from (in, out) to (out, in); ``scale`` becomes ``weight`` and
 ``mean``/``var`` become ``running_mean``/``running_var``.  The name map
-is the SNV part of ``mural_tpu/utils/torch_import.py:126-207``.
+is that of ``mural_tpu/utils/torch_import.py:126-207`` (SNV models and
+the INDEL U-Net).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ _LEAF_NAMES = {"kernel": "weight", "embedding": "weight", "scale": "weight",
 
 def torch_prefix(keys: List[str]) -> str:
     """Flax module path (without the leaf name) -> reference torch module
-    prefix, for the SNV models."""
+    prefix, for SNVNet2 and the INDEL U-Net."""
     head = keys[0]
     if head == "local":
         sub = keys[1]
@@ -46,7 +47,27 @@ def torch_prefix(keys: List[str]) -> str:
         if sub.startswith("RBs"):
             group, j = sub.split("_")          # RBs1_0 -> RBs1, 0
             return f"{group}{suffix}.{j}.{keys[3]}"
+    elif head in _INDEL_FIXED:
+        return _INDEL_FIXED[head]
+    elif "_" in head:
+        kind, level = head.rsplit("_", 1)
+        if kind in _INDEL_LEVELS:
+            return _INDEL_LEVELS[kind].format(level)
+        if kind in ("upblock", "downblock") and len(keys) == 2:
+            idx = {"conv_expand": 0, "bn1": 1, "conv_project": 3,
+                   "bn2": 4}[keys[1]]
+            return f"{kind}s.{level}.0.conv.{idx}"
     raise KeyError(f"no torch name for Flax path {'/'.join(keys)}")
+
+
+# the INDEL U-Net (mural_tpu/utils/torch_import.py:176-206)
+_INDEL_FIXED = {"stem_conv": "conv.0", "stem_bn": "conv.1",
+                "out_conv1": "out_conv.0", "out_bn": "out_conv.1",
+                "out_conv2": "out_conv.3", "out_fc_bn": "out_fc.0",
+                "out_fc": "out_fc.2"}
+_INDEL_LEVELS = {"uplblock": "uplblocks.{}.0", "uplbn": "uplblocks.{}.1",
+                 "downlblock": "downlblocks.{}.1",
+                 "downlbn": "downlblocks.{}.2"}
 
 
 def _leaves(tree: Dict, path: Tuple[str, ...] = ()

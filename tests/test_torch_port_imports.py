@@ -22,6 +22,8 @@ TRAIN_SLICE = [f"mural_tpu_torch.{m}" for m in (
 EVAL_SLICE = [f"mural_tpu_torch.{m}" for m in (
     "evaluation", "evaluation.evaluator", "evaluation.corr_files",
     "predict.scaling", "utils.tsv")]
+INDEL_SLICE = [f"mural_tpu_torch.{m}" for m in ("models.indel",
+                                                "cli.mural_indel")]
 
 
 def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
@@ -64,9 +66,11 @@ def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
     lines = dict(line.split(" ", 1) for line in res.stdout.splitlines()
                  if line.startswith(("MODULES", "BANNED", "NAMES")))
     n_modules, cal_module = lines["MODULES"].split()
-    assert int(n_modules) >= 49
-    # the training and evaluation slices' modules are among those imported
-    assert set(TRAIN_SLICE + EVAL_SLICE) <= set(lines["NAMES"].split(","))
+    assert int(n_modules) >= 51
+    # the training, evaluation and INDEL slices' modules are among those
+    # imported
+    assert set(TRAIN_SLICE + EVAL_SLICE + INDEL_SLICE) <= set(
+        lines["NAMES"].split(","))
     assert cal_module == "mural_tpu_torch.calibrate.dirichlet"
     assert lines["BANNED"] == "[]"
     np.testing.assert_allclose(np.load(tmp_path / "out.npy"),
