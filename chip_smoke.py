@@ -77,7 +77,28 @@ Phases (any failure raises and the script exits non-zero):
    summing to 1, sites/s)
    and ``evaluate --kmer_length 4`` on its TSV; K1, K2 and K3 launched
    0 times in the phase;
-10. a JSON line of the kernels and a timing line.
+10. the rest of the SNV family and the track features, at the CLI
+    default widths: two seeded bedGraph tracks (integer coverage in
+    100-bp steps with radius 50, gzipped fractional scores in 1,000-bp
+    steps with the default radius) loaded as ``--bw_paths`` does (load
+    seconds printed), their means and per-base windows at 500 sites
+    against brute-force float64 sums (the integer track within 1e-9
+    relative and exactly, the fractional one within the float32 in-block
+    bound); card against CPU forwards (B=4, <= 1e-4) of SNVNet0, SNVNet1,
+    SNVNet2 with 2 continuous features and SNVNet3 with 2 at 6 and at 4
+    input channels; five Adam steps of 128 with the fused stem (K2/K3)
+    against unfused (<= 1e-4) on SNVNet1 and on SNVNet3 with continuous
+    features; four one-epoch ``mural_snv train`` runs on 20,000 sites
+    (``--model_no 3 --bw_paths``; the same with ``--without_bw_distal
+    --fused_stem on``; ``--model_no 1 --fused_stem on``; ``--model_no
+    0``): triple, ``n_cont``, finite metrics, K2 twice per train step
+    and validation batch and K3 twice per train step in the fused runs,
+    none in the others; ``get_best_model`` and ``predict --bw_paths
+    --pred_time_view`` of the track-channel SNVNet3 on the predict BED
+    (schema, sums, sites/s, the track windows' host seconds, K1 0
+    times); ``--fused_inference`` on it prints the NOTE and launches K1 0
+    times; without ``--bw_paths`` it raises the ``n_cont`` ValueError;
+11. a JSON line of the kernels and a timing line.
 
 The last line of standard output is the device record
 ``{"ok": true, "device": {...}}``.  ``--only_kernels`` runs the setup
@@ -99,6 +120,7 @@ import io
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -1399,9 +1421,378 @@ def phase_indel(work, fasta, model_path, beds, dev, seed):
     return out
 
 
-def kernel_records(k1, k23, k1_launches, train_on):
+# --- phase 10: the rest of the SNV family and the track features -------
+
+FAMILY_TRAIN = 20_000   # sites of the phase-10 training BED
+# the two seeded tracks of phase 10: (file, name, radius or None for the
+# default local_radius, bases per interval, integer values)
+TRACKS = (("coverage.bedGraph", "coverage", 50, 100, True),
+          ("conservation.bedGraph.gz", "conservation", None, 1000, False))
+# float32 in-block sums of at most 4096 values: each stored prefix sum is
+# within 2^-24 * 4096 * max|value| of its float64 value
+INBLOCK_ERR = 2.0 ** -24 * 4096
+
+
+def write_tracks(work: Path, rng: np.random.Generator):
+    """The phase's two bedGraph tracks over the synthetic genome and their
+    list file: integer coverage in 100-bp steps (10% of the steps left
+    out, reading 0) and fractional conservation scores in 1,000-bp steps,
+    gzipped.  Returns the list file and each track's dense per-base
+    float64 values by chromosome."""
+    dense = []
+    rows = []
+    for fname, name, radius, step, integer in TRACKS:
+        values = {}
+        path = work / fname
+        opener = gzip.open if fname.endswith(".gz") else open
+        with opener(path, "wt") as fh:
+            fh.write(f"track type=bedGraph name={name}\n")
+            for chrom, n in CHROMS.items():
+                starts = np.arange(0, n, step)
+                keep = rng.random(len(starts)) >= (0.1 if integer else 0.0)
+                vals = (rng.integers(0, 60, len(starts)).astype(np.float64)
+                        if integer else
+                        np.round(rng.random(len(starts)), 3))
+                v = np.zeros(n)
+                for s, val in zip(starts[keep], vals[keep]):
+                    v[s:s + step] = val
+                values[chrom] = v
+                fh.write("".join(
+                    f"{chrom}\t{s}\t{min(s + step, n)}\t"
+                    f"{int(val) if integer else f'{val:.3f}'}\n"
+                    for s, val in zip(starts[keep], vals[keep])))
+        dense.append(values)
+        rows.append(f"{path} {name}" + (f" {radius}" if radius else ""))
+    track_list = work / "tracks.txt"
+    track_list.write_text("# path name [radius]\n" + "\n".join(rows) + "\n")
+    return str(track_list), dense
+
+
+def phase_tracks(work, rng, bed):
+    """Load the two tracks as ``--bw_paths`` does (bedGraph parse, prefix
+    build, cache write) and hold the means (the continuous features) and
+    per-base windows (the distal track channels) of 500 sites against
+    brute-force float64 sums of the generated values: the integer track
+    exactly (relative 1e-9 for means), the fractional one within the
+    two-level structure's float32 bound."""
+    from mural_tpu_torch.genome.bed import BedFile
+    from mural_tpu_torch.genome.tracks import TrackSet
+    track_list, dense = write_tracks(work, rng)
+    t0 = time.perf_counter()
+    tracks = TrackSet.from_list(track_list, CONFIG["local_radius"])
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    TrackSet.from_list(track_list, CONFIG["local_radius"])
+    cached_s = time.perf_counter() - t0
+    names, radii = tracks.names, tracks.radii
+    log(f"tracks: {names} with radii {radii} loaded in {load_s:.3f} s "
+        f"(bedGraph parse, prefix build, cache write); from the cache in "
+        f"{cached_s:.3f} s")
+    sites = BedFile.read(bed)
+    pick = np.sort(rng.choice(len(sites), 500, replace=False))
+    chroms = [sites.chrom[i] for i in pick]
+    start, stop = sites.start[pick], sites.stop[pick]
+    neg = sites.strand[pick]
+    means = tracks.mean_over_sites(chroms, start, stop)
+    width = 2 * CONFIG["distal_radius"] + 1
+    windows = np.concatenate([tracks.distal_windows(
+        c, start[i:i + 1] - CONFIG["distal_radius"], width, neg[i:i + 1])
+        for i, c in enumerate(chroms)])
+    errs, checks = {}, {}
+    for j, ((_, name, _, _, integer), r) in enumerate(zip(TRACKS, radii)):
+        want_m, n_bases = np.empty(len(pick)), np.empty(len(pick))
+        want_w = np.empty((len(pick), width))
+        for i, c in enumerate(chroms):
+            v = dense[j][c]
+            lo, hi = max(start[i] - r, 0), min(stop[i] + r, len(v))
+            want_m[i] = v[lo:hi].mean() if hi > lo else 0.0
+            n_bases[i] = max(hi - lo, 1)
+            idx = start[i] - CONFIG["distal_radius"] + np.arange(width)
+            w = np.where((idx >= 0) & (idx < len(v)),
+                         v[np.clip(idx, 0, len(v) - 1)], 0.0)
+            want_w[i] = w[::-1] if neg[i] else w
+        bound = INBLOCK_ERR * max(np.abs(v).max() for v in dense[j].values())
+        m_err = np.abs(means[:, j] - want_m)
+        w_err = np.abs(windows[:, :, j] - want_w)
+        errs[name] = {"mean_max_rel": float((m_err / np.maximum(
+            np.abs(want_m), 1e-30)).max()), "mean_max_abs": float(
+            m_err.max()), "window_max_abs": float(w_err.max()),
+            "bound_abs": bound}
+        if integer:
+            checks[f"{name}: means within 1e-9 relative, per-base values "
+                   "exact"] = bool((m_err <= 1e-9 * np.abs(want_m)).all()
+                                   and w_err.max() == 0)
+        else:
+            checks[f"{name}: means and per-base values within the float32 "
+                   "in-block bound"] = bool(
+                (m_err <= 2 * bound / n_bases).all()
+                and w_err.max() <= 2 * bound)
+    log("tracks vs brute force (500 sites): " + json.dumps(errs))
+    check_all("tracks", checks)
+    return track_list, {"load_s": load_s, "cached_load_s": cached_s,
+                        "errors": errs}
+
+
+def family_model(cfg, n_cont, in_channels, seed, randomise_bn=True):
+    """An SNV model at ``cfg``'s widths with the reference init from
+    ``seed`` and, with ``randomise_bn``, randomised BN statistics and
+    affine parameters."""
+    import torch
+    from mural_tpu_torch.models.init import init_weights
+    from mural_tpu_torch.models.registry import build_model
+    gen = torch.Generator().manual_seed(seed)
+    model = init_weights(build_model(cfg["model_no"], cfg, {
+        "emb_dims": cfg["emb_dims"], "n_cont": n_cont, "n_class": 4,
+        "in_channels": in_channels}, "snv"), gen)
+    if not randomise_bn:
+        return model
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm1d):
+                n = m.num_features
+                m.weight.copy_(0.5 + torch.rand(n, generator=gen))
+                m.bias.copy_(0.2 * torch.randn(n, generator=gen))
+                m.running_mean.copy_(0.2 * torch.randn(n, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+    return model
+
+
+# (label, model_no, n_cont, in_channels) of the phase's card-vs-CPU
+# forwards
+FAMILY_FORWARDS = (("SNVNet0", 0, 0, 4), ("SNVNet1", 1, 0, 4),
+                   ("SNVNet2, n_cont 2", 2, 2, 4),
+                   ("SNVNet3, n_cont 2, 6 channels", 3, 2, 6),
+                   ("SNVNet3, n_cont 2, 4 channels", 3, 2, 4))
+
+
+def family_inputs(gen, B, n_cont, in_channels):
+    """(y, cat, codes, cont, tracks) on the CPU: genome-like codes,
+    positive cont means and per-base track values."""
+    import torch
+    codes = torch.randint(0, 4, (B, 401), generator=gen, dtype=torch.uint8)
+    codes[torch.rand((B, 401), generator=gen) < 1e-3] = 14
+    cont = (1 + torch.rand((B, n_cont), generator=gen)) if n_cont else None
+    tracks = (torch.rand((B, 401, in_channels - 4), generator=gen)
+              if in_channels > 4 else None)
+    return (torch.randint(0, 4, (B,), generator=gen),
+            torch.randint(0, 65, (B, 13), generator=gen), codes, cont,
+            tracks)
+
+
+def _on(t, dev):
+    return None if t is None else t.to(dev)
+
+
+def family_steps(model, batches, dev, fused):
+    """Five Adam steps of ``model`` on ``batches``; the per-step losses."""
+    import torch
+    from mural_tpu_torch.train.steps import model_input, train_step
+    state = make_state(model, dev, len(batches))
+    losses = []
+    for y, cat, codes, cont, tracks in batches:
+        loss, _ = train_step(state, y.to(dev), cat.to(dev),
+                             model_input(codes.to(dev), fused,
+                                         _on(tracks, dev)),
+                             torch.ones(len(y), device=dev), _on(cont, dev))
+        losses.append(loss.item())
+    return losses
+
+
+def phase_family_models(dev, seed):
+    """Card against CPU forwards of the SNV family (B=4, eval mode), and
+    five Adam steps of 128 with the fused stem (K2/K3) against unfused on
+    SNVNet1 and on SNVNet3 with continuous features and 4 channels."""
+    import torch
+    from mural_tpu_torch.train.steps import model_input
+    gen = torch.Generator().manual_seed(seed + 7)
+    errs = {}
+    with torch.inference_mode():
+        for label, no, n_cont, ch in FAMILY_FORWARDS:
+            model = family_model(dict(CONFIG, model_no=no), n_cont, ch,
+                                 seed + no).eval()
+            _, cat, codes, cont, tracks = family_inputs(gen, 4, n_cont, ch)
+            cpu = model(cat, model_input(codes, False, tracks), cont)
+            card = copy.deepcopy(model).to(dev)(
+                cat.to(dev), model_input(codes.to(dev), False,
+                                         _on(tracks, dev)),
+                _on(cont, dev)).cpu()
+            errs[label] = ((card - cpu).abs().max()
+                           / max(1.0, cpu.abs().max())).item()
+            log(f"{label}: card vs CPU forward (B=4) max |diff| "
+                f"{errs[label]:.3g} of max(1, max|out|)")
+    cfg = dict(CONFIG, emb_dropout=0.0, local_dropout=0.0,
+               distal_fc_dropout=0.0)
+    steps = {}
+    for label, no, n_cont in (("SNVNet1", 1, 0),
+                              ("SNVNet3, n_cont 2, 4 channels", 3, 2)):
+        # from the reference init, as a trainer starts (phase 5)
+        model = family_model(dict(cfg, model_no=no), n_cont, 4, seed + 9,
+                             randomise_bn=False)
+        batches = [family_inputs(gen, TRAIN_BATCH, n_cont, 4)
+                   for _ in range(5)]
+        fused = family_steps(model, batches, dev, True)
+        unfused = family_steps(model, batches, dev, False)
+        steps[label] = max(abs(a - b) / abs(b)
+                           for a, b in zip(fused, unfused))
+        log(f"{label}: 5 Adam steps of {TRAIN_BATCH}, fused vs unfused "
+            f"losses {fused} vs {unfused}, max rel diff "
+            f"{steps[label]:.3g}")
+        if not np.isfinite(fused).all():
+            steps[label] = math.inf
+    check_all("SNV family models", {
+        "card vs CPU forwards within 1e-4": all(
+            e <= TOL_MODEL for e in errs.values()),
+        "fused vs unfused steps within 1e-4": all(
+            e <= TOL_STEP for e in steps.values())})
+    return {"card_vs_cpu": errs, "steps_fused_vs_unfused": steps}
+
+
+def write_family_bed(work: Path, train_bed: str) -> str:
+    """Every third site of the training BED (still sorted): the phase's
+    20,000-site training set."""
+    rows = Path(train_bed).read_text().splitlines()[::3][:FAMILY_TRAIN]
+    path = work / "family_train.bed"
+    path.write_text("\n".join(rows) + "\n")
+    return str(path)
+
+
+# (experiment, flags, n_cont, fused) of the phase's train runs
+FAMILY_RUNS = (
+    ("m3_tracks", ["--model_no", "3", "--bw_paths", "TRACKS"], 2, False),
+    ("m3_fused", ["--model_no", "3", "--bw_paths", "TRACKS",
+                  "--without_bw_distal", "--fused_stem", "on"], 2, True),
+    ("m1_fused", ["--model_no", "1", "--fused_stem", "on"], 0, True),
+    ("m0", ["--model_no", "0"], 0, False))
+
+
+def phase_family_cli(work, fasta, bed, train_bed, track_list, cuda_id):
+    """Four one-epoch ``mural_snv train`` runs of the SNV family through
+    the CLI (K2/K3 counted from 0 around each), ``get_best_model`` and
+    ``predict --bw_paths`` of the track-channel SNVNet3 on the predict
+    BED, then the two predicts that must not run as asked."""
+    from mural_tpu_torch.cli.mural_snv import main as cli
+    family_bed = write_family_bed(work, train_bed)
+    runs = {}
+    for name, flags, n_cont, fused in FAMILY_RUNS:
+        argv = [track_list if a == "TRACKS" else a for a in flags]
+        run = runs[name] = cli_train(cli, work, fasta, family_bed, name,
+                                     cuda_id, ["--epochs", "1", *argv])
+        trial = run["trial"]
+        ck = trial / "checkpoint_0"
+        metrics = (dict(line.split(": ", 1) for line in (
+            ck / "epoch_0_metrics.txt").read_text().splitlines())
+            if (ck / "epoch_0_metrics.txt").exists() else {})
+        config = {}
+        if (ck / "model.config.pkl").exists():
+            with open(ck / "model.config.pkl", "rb") as fh:
+                config = pickle.load(fh)
+        steps = sum(e["train_steps"] for e in run["epochs"])
+        vbatches = sum(e["valid_batches"] for e in run["epochs"])
+        want = ((2 * (steps + vbatches), 2 * steps) if fused else (0, 0))
+        check_all(f"train {' '.join(flags)}", {
+            "exit code 0, one epoch logged": run["rc"] == 0
+            and len(run["epochs"]) == 1,
+            "checkpoint_0 holds the triple": all(
+                (ck / f).exists()
+                for f in ("model", "model.config.pkl", "model.fdiri_cal.pkl")),
+            f"n_cont {n_cont} in the config": config.get("n_cont") == n_cont,
+            "finite loss, fdiri_loss and score": all(
+                np.isfinite(float(metrics.get(k, "nan")))
+                for k in ("loss", "fdiri_loss", "score")),
+            f"K2 {want[0]} and K3 {want[1]} launches (2 per train step and "
+            "validation batch, 2 per train step)" if fused else
+            "no K2/K3 launch": (run["k2"], run["k3"]) == want,
+        })
+        run["config_n_cont"] = config.get("n_cont")
+        log(f"train {' '.join(flags)}: {run['seconds']:.3f} s; K2 "
+            f"{run['k2']}, K3 {run['k3']}; epochs "
+            + json.dumps(run["epochs"]))
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc_best = cli(["get_best_model", "--trial_path",
+                       str(work / "results" / "m3_tracks")])
+    log(out.getvalue().rstrip())
+    best = os.path.normpath(os.path.join(
+        work, out.getvalue().splitlines()[1].split("\t")[0]))
+    model_path = os.path.join(best, "model")
+    common = ["--ref_genome", fasta, "--model_path", model_path,
+              "--model_config_path", model_path + ".config.pkl",
+              "--calibrator_path", model_path + ".fdiri_cal.pkl",
+              "--pred_batch_size", str(BATCH), "--cuda_id", str(cuda_id)]
+    n_sites = sum(1 for _ in open(bed))
+    pred = cli_predict(cli, ["--test_data", bed, *common,
+                             "--bw_paths", track_list, "--pred_time_view"],
+                       str(work / "pred_tracks.tsv.gz"))
+    pred["sites_per_s"] = n_sites / pred["seconds"]
+    view = next((line for line in pred["lines"]
+                 if line.startswith("time view")), "")
+    m = re.search(r"host batch build ([\d.]+)s, of which track windows "
+                  r"([\d.]+)s", view)
+    pred["batch_build_s"], pred["track_windows_s"] = (
+        (float(m[1]), float(m[2])) if m else (None, None))
+    log(f"predict --bw_paths (SNVNet3, 6 channels): {pred['seconds']:.3f} "
+        f"s, {pred['sites_per_s']:.1f} sites/s; host batch build "
+        f"{pred['batch_build_s']} s, of which track windows "
+        f"{pred['track_windows_s']} s; K1 launches {pred['launches']}")
+    header, keys, probs = pred["tsv"]
+    fused_pred = cli_predict(cli, ["--test_data", family_bed, *common,
+                                   "--bw_paths", track_list,
+                                   "--fused_inference"],
+                             str(work / "pred_tracks_fused.tsv.gz"))
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli(["predict", "--test_data", family_bed, *common,
+                 "--pred_file", str(work / "pred_no_tracks.tsv.gz")])
+        missing = "no error"
+    except ValueError as e:
+        missing = str(e)
+    log(f"predict without --bw_paths on the track checkpoint: {missing}")
+    check_all("get_best_model -> predict --bw_paths", {
+        "exit codes 0": rc_best == 0 and pred["rc"] == 0
+        and fused_pred["rc"] == 0,
+        "best checkpoint is the trial's": os.path.dirname(best) == str(
+            runs["m3_tracks"]["trial"]),
+        "TSV schema": header == TSV_HEADER,
+        f"{n_sites} rows": len(keys) == n_sites,
+        "probabilities finite and summing to 1": bool(
+            np.isfinite(probs).all()
+            and np.abs(probs.sum(1) - 1).max() <= 1e-3),
+        "the time view reports the track windows' seconds":
+            pred["track_windows_s"] is not None,
+        "K1 launched 0 times": pred["launches"] == 0,
+        "--fused_inference prints the NOTE and launches K1 0 times": any(
+            line.startswith("NOTE: --fused_inference only supports")
+            for line in fused_pred["lines"]) and fused_pred["launches"] == 0,
+        "predict without --bw_paths raises the n_cont ValueError":
+            "n_cont=2" in missing,
+    })
+    return {
+        "train": {name: {"seconds": r["seconds"], "epochs": r["epochs"],
+                         "k2": r["k2"], "k3": r["k3"]}
+                  for name, r in runs.items()},
+        "predict_s": pred["seconds"], "predict_sites_per_s":
+            pred["sites_per_s"], "predict_batch_build_s":
+            pred["batch_build_s"], "predict_track_windows_s":
+            pred["track_windows_s"], "k1_launches": pred["launches"]
+        + fused_pred["launches"]}
+
+
+def phase_family(work, rng, fasta, bed, train_bed, dev, seed):
+    """Phase 10: tracks, the family's models, and its CLI path."""
+    track_list, tracks = phase_tracks(work, rng, bed)
+    models = phase_family_models(dev, seed)
+    cli = phase_family_cli(work, fasta, bed, train_bed, track_list,
+                           dev.index or 0)
+    return {"tracks": tracks, "models": models, **cli}
+
+
+def kernel_records(k1, k23, k1_launches, train_on, family=None):
     """The kernels' JSON records from phases 2-3; ``launches`` come from
-    the main path's runs (None when it did not run)."""
+    the main path's runs (None when it did not run): K1 from phase 6's
+    fused predict, K2/K3 from phase 7's fused train; ``launches_phase10``
+    from phase 10's runs (``family``: K1 on its predicts, K2/K3 on each
+    train run)."""
     per_step = (f"one train step: B={TRAIN_BATCH} at L=401 (pool 15) and "
                 f"the L=201 crop (pool 3)")
     t128 = k23["timings"][TRAIN_BATCH]
@@ -1417,6 +1808,7 @@ def kernel_records(k1, k23, k1_launches, train_on):
         "library_call_ms": k1["library_call_ms"],
         "per": f"one predict batch: B={BATCH} at L=401 and the L=201 crop",
         "at_b256": k1["at_b256"],
+        "launches_phase10": family and family["k1_launches"],
     }, {
         "name": "code_conv_pool_fwd", "route": "cuda",
         "source": "mural_tpu_torch/ops/csrc/code_conv_pool.cu",
@@ -1427,6 +1819,8 @@ def kernel_records(k1, k23, k1_launches, train_on):
         "bound_by": k23["bound_k2"][1], "library_ms": t128["k2_library_ms"],
         "call_ms": t128["k2_call_ms"], "per": per_step,
         "bound_ms_b2048": k23["bound_k2_b2048"][0], "at_b128": t128, "at_b2048": k23["timings"][2048],
+        "launches_phase10": family and {
+            name: run["k2"] for name, run in family["train"].items()},
     }, {
         "name": "code_conv_pool_bwd", "route": "cuda",
         "source": "mural_tpu_torch/ops/csrc/code_conv_pool.cu",
@@ -1438,6 +1832,8 @@ def kernel_records(k1, k23, k1_launches, train_on):
         "bound_by": k23["bound_k3"][1], "library_ms": t128["k3_library_ms"],
         "call_ms": t128["k3_call_ms"], "per": per_step,
         "bound_ms_b2048": k23["bound_k3_b2048"][0], "at_b128": t128, "at_b2048": k23["timings"][2048],
+        "launches_phase10": family and {
+            name: run["k3"] for name, run in family["train"].items()},
     }]
     return kernels
 
@@ -1528,11 +1924,15 @@ def main(argv=None) -> int:
     # 9. the INDEL path (no kernel of the port on it)
     indel = timed("indel", phase_indel, work, fasta, indel_path, indel_beds,
                   dev, args.seed)
+    # 10. the rest of the SNV family and the track features
+    family = timed("snv_family", phase_family, work,
+                   np.random.default_rng(args.seed + 10), fasta, bed,
+                   train_bed, dev, args.seed)
     shutil.rmtree(work, ignore_errors=True)
 
-    # 10. results
+    # 11. results
     log(json.dumps({"kernels": kernel_records(
-        k1, k23, fused["launches"], train_on)}))
+        k1, k23, fused["launches"], train_on, family)}))
     log(json.dumps({
         "card": card, "build_s": t_build,
         "model_max_abs_err": model_err, **fwd_ms,
@@ -1549,6 +1949,7 @@ def main(argv=None) -> int:
         "train_fused_epochs": train_on["epochs"],
         "train_unfused_epochs": train_off["epochs"],
         "indel": indel,
+        "snv_family": family,
         "n_sites": args.n_sites, "n_train": args.n_train,
         "n_indel_sites": INDEL_SITES,
         "n_indel_train": INDEL_TRAIN, "batch": BATCH,

@@ -147,7 +147,8 @@ def _data_args(p):
                    help="Seed for the train/validation split; -1 draws "
                         "a random seed. Default: -1.")
     g.add_argument("--bw_paths", type=str, metavar="FILE", default=None,
-                   help="List file of coverage tracks (not ported yet).")
+                   help="List file of coverage tracks "
+                        "(path name [radius] rows).")
     g.add_argument("--without_bw_distal", default=False,
                    action="store_true",
                    help="Do not use track data for distal regions.")
@@ -189,8 +190,7 @@ def add_train_parser(subparsers, model_type: str):
     if model_type == "snv":
         m.add_argument("--model_no", type=int, metavar="INT", default=2,
                        help="Model architecture: 0 local-only, 1 "
-                            "expanded-only, 2 combined (only 2 is "
-                            "ported). Default: 2.")
+                            "expanded-only, 2 combined. Default: 2.")
         m.add_argument("--n_class", type=int, metavar="INT", default=4,
                        help="Number of mutation classes. Default: 4.")
         for flag, kind, default, text in (
@@ -272,7 +272,7 @@ def add_predict_parser(subparsers, model_type: str):
                      action="store_true",
                      help="Poisson-based probability calibration.")
     opt.add_argument("--bw_paths", type=str, metavar="FILE", default=None,
-                     help="List file of coverage tracks (not ported yet).")
+                     help="List file of coverage tracks.")
     opt.add_argument("--n_h5_files", type=int, metavar="INT", default=1,
                      help=argparse.SUPPRESS)
     opt.add_argument("--pred_time_view", default=False,

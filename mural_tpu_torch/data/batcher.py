@@ -24,6 +24,8 @@ class Batch:
     distal: np.ndarray       # (B, W) uint8 genome codes
     n_valid: int
     rows: np.ndarray         # (B,) int64 dataset row ids (-1 for padding)
+    cont: Optional[np.ndarray] = None           # (B, n_cont) float32
+    distal_tracks: Optional[np.ndarray] = None  # (B, W, n_tracks) float32
 
 
 def iter_batch_rows(ds: SiteDataset, sampled_segments: int,
@@ -67,12 +69,15 @@ def segment_pool_batches(ds: SiteDataset, sampled_segments: int,
                                          pad_final=pad_final):
         y = ds.y[rows].copy()
         cat = ds.cat[rows].copy()
+        cont = None if ds.cont is None else ds.cont[rows]
         distal = ds.gather_distal(rows)
+        tracks = (ds.gather_distal_track_values(rows)
+                  if ds.distal_tracks is not None else None)
         out_rows = rows.copy()
         if n_valid < len(rows):
-            y[n_valid:] = 0
-            cat[n_valid:] = 0
-            distal[n_valid:] = 0
+            for arr in (y, cat, cont, distal, tracks):
+                if arr is not None:
+                    arr[n_valid:] = 0
             out_rows[n_valid:] = -1
         yield Batch(y=y, cat=cat, distal=distal, n_valid=n_valid,
-                    rows=out_rows)
+                    rows=out_rows, cont=cont, distal_tracks=tracks)

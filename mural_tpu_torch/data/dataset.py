@@ -1,22 +1,25 @@
-"""Site dataset: local features + distal gather metadata (counterpart of
-``mural_tpu/data/dataset.py``, without track features).
+"""Site dataset: local features, track features and distal gather
+metadata (counterpart of ``mural_tpu/data/dataset.py``).
 
 All per-site arrays are in segment emission order, so every segment is a
 contiguous row range.  Distal windows are not materialised: batches
-gather uint8 code windows on demand (:meth:`SiteDataset.gather_distal`).
+gather uint8 code windows on demand (:meth:`SiteDataset.gather_distal`)
+and, with distal track channels, the tracks' per-base values over the
+same windows (:meth:`SiteDataset.gather_distal_track_values`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from mural_tpu_torch.genome import encode as enc
 from mural_tpu_torch.genome.bed import BedFile, segment_sites
 from mural_tpu_torch.genome.fasta import Genome
+from mural_tpu_torch.genome.tracks import TrackSet
 
 
 @dataclass
@@ -37,8 +40,13 @@ class SiteDataset:
     y: np.ndarray                   # int32 labels
     local1: np.ndarray              # int8 (n, 2r+1|2r) order-1 digits
     cat: np.ndarray                 # int32 (n, n_cat) categorical ids
+    cont: Optional[np.ndarray]      # float32 (n, n_cont) track means
 
     seg_offsets: np.ndarray         # int64 (n_segments + 1,)
+
+    # tracks whose per-base values join the one-hot as extra distal
+    # channels (in_channels = 4 + n_cont), or None
+    distal_tracks: Optional[TrackSet] = None
 
     @property
     def n_sites(self) -> int:
@@ -50,7 +58,11 @@ class SiteDataset:
 
     @property
     def n_cont(self) -> int:
-        return 0
+        return 0 if self.cont is None else self.cont.shape[1]
+
+    @property
+    def n_distal_tracks(self) -> int:
+        return 0 if self.distal_tracks is None else len(self.distal_tracks)
 
     @property
     def cat_dims(self) -> List[int]:
@@ -80,6 +92,24 @@ class SiteDataset:
                                         width, neg[m])
         return out
 
+    def gather_distal_track_values(self, rows: np.ndarray) -> np.ndarray:
+        """float32 (len(rows), distal_width, n_distal_tracks) per-base
+        track values over the distal windows; reverse-strand rows come
+        back reversed, aligned with their reverse-complemented codes."""
+        rows = np.asarray(rows)
+        width = self.distal_width
+        out = np.empty((len(rows), width, self.n_distal_tracks),
+                       dtype=np.float32)
+        starts = enc.expanded_start(self.start[rows], self.distal_radius,
+                                    self.model_type)
+        cids = self.chrom_id[rows]
+        neg = self.strand_neg[rows]
+        for cid in np.unique(cids):
+            m = cids == cid
+            out[m] = self.distal_tracks.distal_windows(
+                self.chrom_names[cid], starts[m], width, neg[m])
+        return out
+
     def local_frame(self) -> Dict[str, np.ndarray]:
         """Order-1 local columns plus ``mut_type``, as numpy columns (the
         JAX package's pandas frame, ``mural_tpu/data/dataset.py:135``)."""
@@ -101,6 +131,7 @@ class SiteDataset:
             self, chrom_id=self.chrom_id[rows], start=self.start[rows],
             stop=self.stop[rows], strand_neg=self.strand_neg[rows],
             y=self.y[rows], local1=self.local1[rows], cat=self.cat[rows],
+            cont=None if self.cont is None else self.cont[rows],
             seg_offsets=offsets)
 
     def position_frame(self) -> Dict[str, np.ndarray]:
@@ -118,8 +149,15 @@ def prepare_dataset(bed: "BedFile | str", genome: "Genome | str",
                     central_bp: int = 300000, local_radius: int = 7,
                     local_order: int = 3, distal_radius: int = 200,
                     distal_order: int = 1, model_type: str = "snv",
-                    check_mid: bool = True) -> SiteDataset:
-    """Build a :class:`SiteDataset` from a BED and a genome."""
+                    tracks: Optional[TrackSet] = None,
+                    seq_only: bool = False, check_mid: bool = True,
+                    bw_distal: bool = False) -> SiteDataset:
+    """Build a :class:`SiteDataset` from a BED and a genome.
+
+    ``tracks`` supply the continuous features ``cont``: each track's mean
+    over the site's window expanded by its radius.  With ``bw_distal``
+    their per-base values also become distal channels.  ``seq_only``
+    ignores the tracks."""
     if isinstance(bed, str):
         bed = BedFile.read(bed)
     if isinstance(genome, str):
@@ -165,10 +203,19 @@ def prepare_dataset(bed: "BedFile | str", genome: "Genome | str",
     cat = (enc.kmer_ids(local_windows, local_order) if local_order > 1
            else local1.astype(np.int32))
 
+    use_tracks = tracks is not None and not seq_only and len(tracks) > 0
+    cont = None
+    if use_tracks:
+        cont = tracks.mean_over_sites(
+            [bed.chrom[i] for i in perm], start, stop,
+            model_type=model_type).astype(np.float32)
+
     return SiteDataset(
         model_type=model_type, local_radius=local_radius,
         local_order=local_order, distal_radius=distal_radius,
         central_bp=central_bp, chrom_names=chrom_names,
         chrom_codes=chrom_codes, chrom_id=chrom_id, start=start,
         stop=stop, strand_neg=strand_neg, y=y.astype(np.int32),
-        local1=local1, cat=cat.astype(np.int32), seg_offsets=seg_offsets)
+        local1=local1, cat=cat.astype(np.int32), cont=cont,
+        seg_offsets=seg_offsets,
+        distal_tracks=tracks if use_tracks and bw_distal else None)

@@ -10,7 +10,10 @@ global max over length, BN -> Dropout(0.1) -> Linear -> Softplus.
 
 ``use_reverse`` adds the strand-symmetrised stem
 ``conv(x) + flip(conv(revcomp(x)))``: for the ACGT one-hot, flipping the
-channel axis is complementation.
+channel axis is complementation.  With distal track channels the input
+has ``4 + n_cont`` channels: the stem (or, without it, the first encoder
+conv) takes them all, and the stem's flip covers every channel, as in
+the JAX package.
 
 Module names give the reference's state_dict keys (``conv.0/.1``,
 ``uplblocks.i.0/.1``, ``upblocks.i.0.conv.N``, ``downlblocks.j.1/.2``,
@@ -76,25 +79,28 @@ class UpsampleNearest(nn.Module):
 
 
 class UNetSmall(nn.Module):
-    """The INDEL model.  ``forward(cat, distal)``: ``distal`` is the
-    (N, L, 4) one-hot with L = 2 * distal_radius; ``cat`` is ignored (the
-    SNV models' signature).  Output: softplus'd (N, n_class) scores, used
-    as logits by the CE loss."""
+    """The INDEL model.  ``forward(cat, distal, cont=None)``: ``distal``
+    is the (N, L, in_channels) one-hot (and track channels) with L = 2 *
+    distal_radius; ``cat`` and ``cont`` are ignored (the SNV models'
+    signature).  Output: softplus'd (N, n_class) scores, used as logits
+    by the CE loss."""
 
     def __init__(self, n_class: int, out_channels: int, kernel_size: int,
-                 downsize: Sequence[int], use_reverse: bool = False):
+                 downsize: Sequence[int], use_reverse: bool = False,
+                 in_channels: int = 4):
         super().__init__()
         k, p = kernel_size, (kernel_size - 1) // 2
         self.downsize = tuple(int(s) for s in downsize)
         self.use_reverse = bool(use_reverse)
         if self.use_reverse:
-            self.conv = nn.Sequential(nn.Conv1d(4, 4, k, padding=p),
-                                      nn.BatchNorm1d(4))
+            self.conv = nn.Sequential(
+                nn.Conv1d(in_channels, 4, k, padding=p), nn.BatchNorm1d(4))
         ch = [out_channels * (i + 1) for i in range(6)]
         self.uplblocks = nn.ModuleList(
             nn.Sequential(nn.Conv1d(c_in, c, k, stride=s, padding=p),
                           nn.BatchNorm1d(c))
-            for c_in, c, s in zip([4] + ch[:5], ch, self.downsize))
+            for c_in, c, s in zip([4 if use_reverse else in_channels]
+                                  + ch[:5], ch, self.downsize))
         self.upblocks = nn.ModuleList(nn.Sequential(ConvBlock(c))
                                       for c in ch)
         levels = range(4, -1, -1)          # the encoder level each joins
@@ -112,13 +118,14 @@ class UNetSmall(nn.Module):
                                     nn.Linear(ch[0], n_class))
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
-        """The ``use_reverse`` stem on (N, 4, L): the conv and BN on ``x``
-        plus, flipped back along length, on its reverse complement (in
-        train mode the BN's running statistics update once for each)."""
+        """The ``use_reverse`` stem on (N, C, L): the conv and BN on ``x``
+        plus, flipped back along length, on ``x`` flipped along channels
+        and length, its reverse complement for the one-hot (in train mode
+        the BN's running statistics update once for each)."""
         return self.conv(x) + self.conv(x.flip(1, 2)).flip(2)
 
-    def forward(self, cat: torch.Tensor, distal: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, cat: torch.Tensor, distal: torch.Tensor,
+                cont=None) -> torch.Tensor:
         check_geometry(distal.shape[1], self.downsize)
         x = distal.transpose(1, 2)
         if self.use_reverse:

@@ -1,8 +1,10 @@
 """Prediction on a BED file (counterpart of
 ``mural_tpu/predict/pipeline.py:80-241``; ref MuRaL/scripts/run_predict.py).
 
-Rehydrates the architecture (SNVNet2 or the INDEL U-Net) from
-``model.config.pkl``, encodes the BED, runs batched inference on the
+Rehydrates the architecture (SNVNet0-3 or the INDEL U-Net) from
+``model.config.pkl``, encodes the BED (with the ``--bw_paths`` tracks'
+means and, for a checkpoint trained with them, their per-base distal
+channels), runs batched inference on the
 device, applies the saved calibrator and/or Poisson calibration (always
 for INDEL), writes the reference's TSV schema
 ``chrom start end strand mut_type prob0..N`` sorted by (chrom, start)
@@ -22,16 +24,16 @@ import torch
 from mural_tpu_torch.calibrate.poisson import poisson_calibrate
 from mural_tpu_torch.data.batcher import segment_pool_batches
 from mural_tpu_torch.data.dataset import prepare_dataset
-from mural_tpu_torch.device import resolve_device
+from mural_tpu_torch.device import resolve_device, to_device
 from mural_tpu_torch.evaluation.evaluator import (_kmer_columns,
                                                   corr_calc_sub,
                                                   freq_kmer_comp_multi)
 from mural_tpu_torch.genome.fasta import Genome
-from mural_tpu_torch.models.layers import one_hot_from_codes
+from mural_tpu_torch.genome.tracks import TrackSet
 from mural_tpu_torch.models.registry import build_model_from_config
 from mural_tpu_torch.train.checkpoint import (load_calibrator,
                                               load_checkpoint, load_config)
-from mural_tpu_torch.train.steps import masked_ce_sum
+from mural_tpu_torch.train.steps import masked_ce_sum, model_input
 from mural_tpu_torch.utils.tsv import write_tsv
 
 
@@ -60,7 +62,6 @@ class PredictOptions:
 def _check_ported(opts: PredictOptions) -> None:
     not_ported = [
         (opts.with_h5, "--with_h5", 4),
-        (opts.bw_paths, "--bw_paths", 6),
         (opts.n_devices > 1, "--n_devices > 1", 10),
     ]
     for value, flag, item in not_ported:
@@ -84,10 +85,12 @@ def run_predict(opts: PredictOptions, model_type: str = "snv",
 
     config = load_config(opts.model_config_path)
     n_class = config["n_class"]
-    if config.get("n_cont"):
-        raise NotImplementedError(
-            "checkpoints trained with track features are not ported yet "
-            "(ROADMAP.md item 6)")
+    seq_only = config.get("seq_only", False)
+    tracks = (TrackSet.from_list(opts.bw_paths, config["local_radius"])
+              if opts.bw_paths else None)
+    bw_distal = (tracks is not None
+                 and not config.get("without_bw_distal", False)
+                 and not seq_only)
     genome = Genome.from_fasta(opts.ref_genome)
     ds = prepare_dataset(
         opts.test_data, genome,
@@ -95,14 +98,22 @@ def run_predict(opts: PredictOptions, model_type: str = "snv",
         local_radius=config["local_radius"],
         local_order=config["local_order"],
         distal_radius=config["distal_radius"],
-        distal_order=config.get("distal_order", 1), model_type=model_type)
+        distal_order=config.get("distal_order", 1), model_type=model_type,
+        tracks=tracks, seq_only=seq_only, bw_distal=bw_distal)
     printer("test set preprocess time:", time.time() - start_time)
 
-    model = build_model_from_config(config, 0, model_type)
+    ckpt_n_cont = config.get("n_cont")
+    if ckpt_n_cont is not None and ckpt_n_cont != ds.n_cont:
+        raise ValueError(
+            f"checkpoint was trained with n_cont={ckpt_n_cont} track "
+            f"feature(s) but predict got {ds.n_cont} -- pass the same "
+            "--bw_paths track list used for training")
+    model = build_model_from_config(config, ds.n_cont, model_type)
     load_checkpoint(opts.model_path, model)
     model.to(device).eval()
 
-    use_fused = opts.fused_inference and model_type == "snv"
+    use_fused = (opts.fused_inference and model_type == "snv"
+                 and config.get("model_no") == 2 and ds.n_cont == 0)
     if opts.fused_inference and not use_fused:
         printer("NOTE: --fused_inference only supports SNV model_no 2 "
                 "without continuous features; using the standard path.")
@@ -111,11 +122,25 @@ def run_predict(opts: PredictOptions, model_type: str = "snv",
                                                          snv2_fused_forward)
         folded = fold_snv2(model)
 
-        def forward(cat, codes):
+        def forward(cat, codes, cont, tracks):
             return snv2_fused_forward(folded, cat, codes)
     else:
-        def forward(cat, codes):
-            return model(cat, one_hot_from_codes(codes))
+        def forward(cat, codes, cont, tracks):
+            return model(cat, model_input(codes, False, tracks), cont)
+
+    # the host seconds of the per-base track windows, part of the batch
+    # build (--pred_time_view)
+    track_s = [0.0]
+    if ds.distal_tracks is not None:
+        gather_tracks = ds.gather_distal_track_values
+
+        def timed_gather_tracks(rows):
+            t = time.time()
+            out = gather_tracks(rows)
+            track_s[0] += time.time() - t
+            return out
+
+        ds.gather_distal_track_values = timed_gather_tracks
 
     test_size = ds.n_sites
     parts = []
@@ -133,7 +158,11 @@ def run_predict(opts: PredictOptions, model_type: str = "snv",
             cat = torch.from_numpy(batch.cat).to(device).long()
             codes = torch.from_numpy(batch.distal).to(device)
             y = torch.from_numpy(batch.y).to(device).long()
-            logits = forward(cat, codes)
+            cont = (None if batch.cont is None
+                    else to_device(batch.cont, device))
+            tracks = (None if batch.distal_tracks is None
+                      else to_device(batch.distal_tracks, device))
+            logits = forward(cat, codes, cont, tracks)
             # no per-batch host sync: the loss accumulates on the device
             loss_dev += masked_ce_sum(logits, y,
                                       (row_ids < batch.n_valid).float())
@@ -194,7 +223,10 @@ def run_predict(opts: PredictOptions, model_type: str = "snv",
     if opts.pred_time_view:
         printer(f"time view: preprocess and model load "
                 f"{t_loop - start_time:.3f}s, batch loop {t_out - t_loop:.3f}s"
-                f" (host batch build {fetch_all + t_fetch:.3f}s, copy and "
+                f" (host batch build {fetch_all + t_fetch:.3f}s"
+                + (f", of which track windows {track_s[0]:.3f}s"
+                   if ds.distal_tracks is not None else "")
+                + f", copy and "
                 f"forward enqueue {pred_all + t_pred:.3f}s), calibration, "
                 f"sort and output {t_corr - t_out:.3f}s, k-mer and "
                 f"regional correlation {time.time() - t_corr:.3f}s")

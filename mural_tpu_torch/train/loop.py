@@ -1,9 +1,11 @@
 """The per-trial training pipeline, host-fed (counterpart of
 ``mural_tpu/train/loop.py``; ref MuRaL/training.py:45-567).
 
-dataset build -> segment-level train/validation split (``split_seed``)
--> emb_dims -> model build (SNVNet2 or the INDEL U-Net) + the reference
-init from ``rng_seed`` ->
+track list (``--bw_paths``) -> dataset build (with the tracks' means as
+continuous features and, unless ``without_bw_distal`` or ``seq_only``,
+their per-base values as distal channels) -> segment-level
+train/validation split (``split_seed``) -> emb_dims -> model build
+(SNVNet0-3 or the INDEL U-Net) + the reference init from ``rng_seed`` ->
 weight_decay_auto -> optimizer and LR schedule -> epochs of train steps
 on host-built batches -> per epoch: validation, FullDirichlet fit,
 k-mer and regional evaluation (whose regional score is the metrics'
@@ -15,8 +17,9 @@ validation, where the JAX package overlaps it with the next epoch on a
 thread; the files it writes and their order are the same.  With
 ``fused_stem='on'`` each distal tower's first BN -> conv -> pool runs as
 the fused stem (CUDA kernels K2/K3 on the card, see
-:mod:`mural_tpu_torch.ops.fused_train_stem`); ``'auto'`` resolves to off,
-as in the JAX package.
+:mod:`mural_tpu_torch.ops.fused_train_stem`) for the SNV models with
+towers and no distal track channels; ``'auto'`` resolves to off, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from mural_tpu_torch.data.dataset import SiteDataset, prepare_dataset
 from mural_tpu_torch.device import resolve_device, to_device
 from mural_tpu_torch.evaluation.evaluator import Evaluator
 from mural_tpu_torch.genome.fasta import Genome
+from mural_tpu_torch.genome.tracks import TrackSet
 from mural_tpu_torch.models.init import init_weights
 from mural_tpu_torch.models.registry import build_model, check_model_no
 from mural_tpu_torch.train.checkpoint import save_checkpoint
@@ -86,13 +90,12 @@ class TrainOptions:
 
 def check_ported(opts: TrainOptions, model_type: str = "snv") -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP.md item of each
-    option this slice does not run.  ``--model_no`` is checked here too,
-    before any trial starts: ``build_model`` refuses it only inside a
-    trial, whose error goes to its error.txt while the run carries on."""
+    option the port does not run yet.  ``--model_no`` is checked here
+    too (the JAX package's ``ValueError``), before any trial starts:
+    ``build_model`` refuses it only inside a trial, whose error goes to
+    its error.txt while the run carries on."""
     check_model_no(opts.model_no, model_type)
     not_ported = [
-        (opts.bw_paths, "--bw_paths", 6),
-        (opts.distal_order != 1, f"--distal_order {opts.distal_order}", 6),
         (opts.with_h5, "--with_h5", 4),
         (opts.bf16, "--bf16", 10),
         ((opts.steps_per_dispatch or 1) > 1, "--steps_per_dispatch > 1", 10),
@@ -170,7 +173,17 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
     # dropout draws from torch's global generator (the JAX package folds
     # its dropout key per step: the two streams differ)
     torch.manual_seed(opts.rng_seed)
-    printer("NOTE: no bigWig files provided.")
+    tracks = None
+    if not opts.bw_paths:
+        printer("NOTE: no bigWig files provided.")
+    else:
+        tracks = TrackSet.from_list(opts.bw_paths, config["local_radius"])
+        if tracks is None:
+            printer("Warnings: no bigWig files provided in", opts.bw_paths)
+    # per-base distal track channels unless --without_bw_distal or
+    # --seq_only
+    bw_distal = (tracks is not None and not opts.without_bw_distal
+                 and not opts.seq_only)
 
     genome = Genome.from_fasta(opts.ref_genome)
 
@@ -180,7 +193,8 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
             local_radius=config["local_radius"],
             local_order=config["local_order"],
             distal_radius=config["distal_radius"],
-            distal_order=opts.distal_order, model_type=model_type)
+            distal_order=opts.distal_order, model_type=model_type,
+            tracks=tracks, seq_only=opts.seq_only, bw_distal=bw_distal)
 
     step_t = time.time()
     ds = prepare(opts.train_data)
@@ -210,16 +224,20 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
     config["min_lr"] = config.get("min_lr", 1e-6)
     config["emb_dims"] = [(x, min(16, int(x ** 0.25)))
                           for x in ds.cat_dims]
-    config["n_cont"] = 0
-    in_channels = 4 ** opts.distal_order
-    common = {"emb_dims": config["emb_dims"], "n_cont": 0,
+    n_cont = ds.n_cont
+    config["n_cont"] = n_cont    # predict rehydrates from this
+    in_channels = 4 ** opts.distal_order + (n_cont if bw_distal else 0)
+    common = {"emb_dims": config["emb_dims"], "n_cont": n_cont,
               "n_class": opts.n_class, "distal_order": opts.distal_order,
               "in_channels": in_channels}
     model = build_model(opts.model_no, config, common, model_type)
-    # the fused stem belongs to the SNV towers (the JAX package's rule,
-    # mural_tpu/train/loop.py:363-366); the U-Net runs unfused
+    # the fused stem belongs to the SNV towers on the plain one-hot (the
+    # JAX package's rule, mural_tpu/train/loop.py:363-366); SNVNet0 has
+    # no tower and the U-Net runs unfused
     use_fused_stem = (opts.fused_stem == "on" and model_type == "snv"
-                      and in_channels == 4)
+                      and opts.model_no in (1, 2, 3)
+                      and in_channels == 4 and not bw_distal
+                      and opts.distal_order == 1)
     if use_fused_stem:
         printer("fused train stem: on (one-hot+BN+conv+pool as the CUDA "
                 "kernels K2/K3)")
@@ -251,10 +269,13 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
 
     def device_batch(batch):
         mask = (row_ids < batch.n_valid).float()
+        tracks = (None if batch.distal_tracks is None
+                  else to_device(batch.distal_tracks, device))
+        cont = None if batch.cont is None else to_device(batch.cont, device)
         return (to_device(batch.y, device).long(),
                 to_device(batch.cat, device).long(),
                 model_input(to_device(batch.distal, device),
-                            use_fused_stem), mask)
+                            use_fused_stem, tracks), mask, cont)
 
     data_local_valid = ds_valid.local_frame()
     chr_pos_valid = ds_valid.position_frame()
@@ -325,8 +346,8 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
                 rng=host_rng):
             t1 = time.time()
             fetch_t += t1 - t0
-            y, cat, distal, mask = device_batch(batch)
-            loss, _ = train_step(state, y, cat, distal, mask)
+            y, cat, distal, mask, cont = device_batch(batch)
+            loss, _ = train_step(state, y, cat, distal, mask, cont)
             total_loss_dev += loss
             n_steps += 1
             t0 = time.time()
@@ -346,8 +367,8 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
         for batch in segment_pool_batches(
                 ds_valid, config["sampled_segments"], B, shuffle=False,
                 pad_final=True):
-            y, cat, distal, mask = device_batch(batch)
-            logits, vloss = eval_step(model, y, cat, distal, mask)
+            y, cat, distal, mask, cont = device_batch(batch)
+            logits, vloss = eval_step(model, y, cat, distal, mask, cont)
             vloss_dev += vloss
             parts.append(logits[:batch.n_valid])
             n_valid_batches += 1

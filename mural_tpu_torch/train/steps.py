@@ -10,7 +10,7 @@ not: when clipping fires the two scale the gradient about 1e-7 apart.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,9 +30,15 @@ def masked_ce_sum(logits: torch.Tensor, y: torch.Tensor,
     return torch.sum((logz - picked) * mask)
 
 
-def model_input(codes: torch.Tensor, fused_stem: bool) -> torch.Tensor:
-    """The distal input: raw codes for the fused stem, else the one-hot."""
-    return codes if fused_stem else one_hot_from_codes(codes)
+def model_input(codes: torch.Tensor, fused_stem: bool,
+                tracks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The distal input on the codes' device: the raw codes for the fused
+    stem when there are no track channels; else the one-hot ``(N, L, 4)``
+    with the per-base track values ``(N, L, n_tracks)`` after it."""
+    if tracks is None:
+        return codes if fused_stem else one_hot_from_codes(codes)
+    onehot = one_hot_from_codes(codes)
+    return torch.cat([onehot, tracks.to(onehot.dtype)], dim=-1)
 
 
 class TrainState:
@@ -54,13 +60,14 @@ class TrainState:
 
 
 def train_step(state: TrainState, y: torch.Tensor, cat: torch.Tensor,
-               distal: torch.Tensor, mask: torch.Tensor
+               distal: torch.Tensor, mask: torch.Tensor,
+               cont: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, float]:
     """One optimizer step; returns (loss on the device, LR used)."""
     model = state.model
     model.train()
     lr = state.lr()
-    loss = masked_ce_sum(model(cat, distal), y, mask)
+    loss = masked_ce_sum(model(cat, distal, cont), y, mask)
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
     torch.nn.utils.clip_grad_norm_(model.parameters(), GRAD_CLIP)
@@ -73,9 +80,10 @@ def train_step(state: TrainState, y: torch.Tensor, cat: torch.Tensor,
 
 @torch.no_grad()
 def eval_step(model: torch.nn.Module, y: torch.Tensor, cat: torch.Tensor,
-              distal: torch.Tensor, mask: torch.Tensor
+              distal: torch.Tensor, mask: torch.Tensor,
+              cont: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eval-mode forward: (logits, masked loss sum), both on the device."""
     model.eval()
-    logits = model(cat, distal)
+    logits = model(cat, distal, cont)
     return logits, masked_ce_sum(logits, y, mask)

@@ -6,7 +6,7 @@ arrays under Flax names (what a ``mural_tpu`` msgpack checkpoint holds).
 Conv kernels go from Flax (k, in, out) to torch (out, in, k), dense
 kernels from (in, out) to (out, in); ``scale`` becomes ``weight`` and
 ``mean``/``var`` become ``running_mean``/``running_var``.  The name map
-is that of ``mural_tpu/utils/torch_import.py:126-207`` (SNV models and
+is that of ``mural_tpu/utils/torch_import.py:126-207`` (SNVNet0-3 and
 the INDEL U-Net).
 """
 
@@ -24,18 +24,23 @@ _LEAF_NAMES = {"kernel": "weight", "embedding": "weight", "scale": "weight",
 
 def torch_prefix(keys: List[str]) -> str:
     """Flax module path (without the leaf name) -> reference torch module
-    prefix, for SNVNet2 and the INDEL U-Net."""
+    prefix, for the SNV models and the INDEL U-Net."""
+    if keys[0] == "model":
+        # SNVNet0 wraps FeedForwardNN as ``model``
+        return "model." + torch_prefix(keys[1:])
     head = keys[0]
     if head == "local":
         sub = keys[1]
         if sub == "emb_layer":
             return "emb_layer"
+        if sub == "first_bn":
+            return "first_bn_layer"
         if sub.startswith("lin_"):
             return f"lin_layers.{sub[4:]}"
         if sub.startswith("bn_"):
             return f"bn_layers.{sub[3:]}"
-    elif head == "local_fc":
-        return "local_fc.0"
+    elif head in _SNV_HEADS:
+        return _SNV_HEADS[head]
     elif head == "towers":
         tower = keys[1]
         if tower.startswith("distal_fc"):
@@ -60,6 +65,9 @@ def torch_prefix(keys: List[str]) -> str:
     raise KeyError(f"no torch name for Flax path {'/'.join(keys)}")
 
 
+# the SNV output heads (mural_tpu/utils/torch_import.py:143-151)
+_SNV_HEADS = {"local_fc": "local_fc.0", "output_layer": "output_layer",
+              "local_fc2_bn": "local_fc2.0", "local_fc2": "local_fc2.2"}
 # the INDEL U-Net (mural_tpu/utils/torch_import.py:176-206)
 _INDEL_FIXED = {"stem_conv": "conv.0", "stem_bn": "conv.1",
                 "out_conv1": "out_conv.0", "out_bn": "out_conv.1",

@@ -24,6 +24,11 @@ EVAL_SLICE = [f"mural_tpu_torch.{m}" for m in (
     "predict.scaling", "utils.tsv")]
 INDEL_SLICE = [f"mural_tpu_torch.{m}" for m in ("models.indel",
                                                 "cli.mural_indel")]
+# the SNV family and track features: new and changed modules
+TRACKS_SLICE = [f"mural_tpu_torch.{m}" for m in (
+    "genome.tracks", "data.dataset", "data.batcher", "models.snv",
+    "models.registry", "models.indel", "utils.convert", "train.steps",
+    "train.loop", "predict.pipeline", "cli.main", "cli.commands")]
 
 
 def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
@@ -66,10 +71,10 @@ def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
     lines = dict(line.split(" ", 1) for line in res.stdout.splitlines()
                  if line.startswith(("MODULES", "BANNED", "NAMES")))
     n_modules, cal_module = lines["MODULES"].split()
-    assert int(n_modules) >= 51
-    # the training, evaluation and INDEL slices' modules are among those
-    # imported
-    assert set(TRAIN_SLICE + EVAL_SLICE + INDEL_SLICE) <= set(
+    assert int(n_modules) >= 52
+    # the training, evaluation, INDEL and track slices' modules are among
+    # those imported
+    assert set(TRAIN_SLICE + EVAL_SLICE + INDEL_SLICE + TRACKS_SLICE) <= set(
         lines["NAMES"].split(","))
     assert cal_module == "mural_tpu_torch.calibrate.dirichlet"
     assert lines["BANNED"] == "[]"

@@ -1,7 +1,7 @@
-"""The port's training slice (``mural_snv train`` for SNVNet2) against the
-JAX package on the CPU, the parts outside the train step: LR schedules
-and weight decay, the segment split, the calibrator fits, and the train
-flags that raise.  The train step is in ``test_torch_port_train_step.py``
+"""The port's training slice (``mural_snv train``) against the JAX
+package on the CPU, the parts outside the train step: LR schedules and
+weight decay, the segment split, the calibrator fits, the train flags
+that raise and the options that raise as in the JAX package.  The train step is in ``test_torch_port_train_step.py``
 and one epoch of ``train_trial`` with the CLI drive in
 ``test_torch_port_train_trial.py``; both take ``CONFIG`` from here."""
 import jax.numpy as jnp
@@ -122,10 +122,48 @@ def test_calibrate_prob_matches_jax(name):
     (["--use_ray"], 8), (["--n_parallel", "2"], 8),
     (["--trial_executor", "process"], 8), (["--bf16"], 10),
     (["--steps_per_dispatch", "8"], 10), (["--resident_data", "on"], 10),
-    (["--with_h5"], 4), (["--model_no", "1"], 6), (["--bw_paths", "x"], 6),
-    (["--dp_devices", "2"], 10), (["--profile_dir", "prof"], 10),
-    (["--trial_ensemble", "auto"], 8), (["--distal_order", "2"], 6)])
+    (["--with_h5"], 4), (["--dp_devices", "2"], 10),
+    (["--profile_dir", "prof"], 10), (["--trial_ensemble", "auto"], 8)])
 def test_cli_train_flags_not_ported_raise(flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         port_cli(["train", "--ref_genome", "seq.fa", "--train_data",
                   "sites.bed", *flag])
+
+
+@pytest.mark.parametrize("model_no", [0, 1, 2, 3])
+def test_train_accepts_every_snv_model_no(model_no):
+    """SNVNet0-3 pass the checks that run before any trial starts (the
+    CLI trains each: tests/test_torch_port_track_train.py)."""
+    loop.check_ported(loop.TrainOptions(train_data="sites.bed",
+                                        ref_genome="seq.fa",
+                                        model_no=model_no))
+
+
+@pytest.fixture(scope="module")
+def tiny_data(tmp_path_factory):
+    from test_torch_port_tracks import write_genome
+    base = tmp_path_factory.mktemp("port_train_raise")
+    return write_genome(base, np.random.default_rng(2), {"chr1": 3000}, 20)
+
+
+@pytest.mark.parametrize("option,error,match", [
+    ({"distal_order": 2}, NotImplementedError,
+     "distal_order > 1 is reserved in the reference too"),
+    ({"bw_paths": "absent_tracks.txt"}, FileNotFoundError,
+     "absent_tracks.txt")])
+def test_train_trial_raises_like_jax(tiny_data, tmp_path, option, error,
+                                     match):
+    """``--distal_order 2`` (reserved in the JAX package too) and a
+    missing ``--bw_paths`` list reach ``train_trial`` and raise there the
+    JAX package's error."""
+    fasta, bed = tiny_data
+    common = dict(train_data=bed, ref_genome=fasta, epochs=1, split_seed=0,
+                  **option)
+    with pytest.raises(error, match=match):
+        j_loop.train_trial(CONFIG, j_loop.TrainOptions(
+            trial_dir=str(tmp_path / "jax"), resident="off", **common),
+            "snv")
+    with pytest.raises(error, match=match):
+        loop.train_trial(CONFIG, loop.TrainOptions(
+            trial_dir=str(tmp_path / "port"), device="cpu", **common),
+            "snv")
