@@ -98,7 +98,32 @@ Phases (any failure raises and the script exits non-zero):
     (schema, sums, sites/s, the track windows' host seconds, K1 0
     times); ``--fused_inference`` on it prints the NOTE and launches K1 0
     times; without ``--bw_paths`` it raises the ``n_cont`` ValueError;
-11. a JSON line of the kernels and a timing line.
+11. transfer, convert and the trial search, at the CLI default widths:
+    ``mural_snv transfer --fused_stem on --epochs 1`` from phase 7's best
+    triple on phase 10's 20,000 sites (triple, finite metrics, ``n_class``
+    and ``model_no`` from the pretrained config, K2 twice per train step
+    and validation batch and K3 twice per train step; train windows/s),
+    then ``predict --fused_inference`` of the transferred triple on the
+    predict BED (K1 twice per batch); ``mural_indel transfer
+    --init_fc_with_pretrained --epochs 1`` from phase 9's best triple on
+    its 20,000 sites (K1-K3 0 times); ``mural_snv convert`` of a
+    reference-layout triple written from phase 7's weights (duplicate
+    ResBlock keys, BN counters, a zero-size ``first_bn_layer``), whose
+    forward at B=4096 on the card equals the source's bit for bit; then
+    ``train`` on a third of phase 10's sites (6,667): ``--use_ray
+    --n_trials 4 --epochs 3 --grace_period 1 --learning_rate 1e-4 1e-2
+    --fused_stem on`` in threads, its configs and trial ids drawn from
+    ``--seed`` (four trials, each stopped where a replay of its losses
+    through the scheduler says, at least one at a rung, the progress
+    table, ``best_models.txt``, K2/K3 twice per step and batch over all
+    trials; wall seconds and each trial's epochs); ``--n_parallel 2
+    --n_trials 2 --epochs 1`` (one trial at a time on the one card);
+    ``--rerun_failed`` after an ``error.txt`` planted in one of them
+    (only that trial runs again); ``--trial_executor process --n_trials
+    2 --epochs 1 --fused_stem on`` (both children train on the card with
+    the fused stem, no ``error.txt``; each child's start-up seconds);
+12. a JSON line of the kernels (with ``launches_phase11``) and a timing
+    line.
 
 The last line of standard output is the device record
 ``{"ok": true, "device": {...}}``.  ``--only_kernels`` runs the setup
@@ -165,6 +190,8 @@ INDEL_TSV_HEADER = ["chrom", "start", "end", "strand", "mut_type"] + [
 CHROMS = {"chr1": 3_000_000, "chr2": 1_000_000}
 # (name, pool kernel, pool padding) of each tower's stem, tower 2 first
 STEMS = (("tower 2 (Bx401)", 15, 7), ("tower 1 (Bx201 crop)", 3, 1))
+# what device_ms timed with CUDA events, the profiler having seen nothing
+TIMED_WITH_EVENTS = []
 
 
 def log(*args):
@@ -194,11 +221,14 @@ def cuda_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20, warmup=3) -> float:
+def device_ms(fn, iters=20, warmup=3, what="") -> float:
     """Mean device busy time of ``fn`` (its kernels and copies, summed
     from a torch.profiler trace) over ``iters`` calls: the kernel's own
     time, which ``cuda_ms`` hides behind the host's enqueue time when a
-    call is shorter than its Python wrapper."""
+    call is shorter than its Python wrapper. Where every capture of
+    ``device_events`` came back without device events, the time is taken
+    with CUDA events instead and ``what`` is noted in
+    ``TIMED_WITH_EVENTS``."""
     import torch
     for _ in range(warmup):
         fn()
@@ -210,9 +240,12 @@ def device_ms(fn, iters=20, warmup=3) -> float:
         torch.cuda.synchronize()
 
     busy = device_busy_ms(calls)
-    if not busy > 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return busy / iters
+    if busy > 0:
+        return busy / iters
+    log(f"torch.profiler recorded no device time for {what or fn}; "
+        "timed with CUDA events instead")
+    TIMED_WITH_EVENTS.append(what or repr(fn))
+    return cuda_ms(fn, iters, warmup)
 
 
 def build_kernels():
@@ -439,8 +472,9 @@ def time_k1(full, table, bias, k, C):
 
     B = len(full)
     bound_ms, bound_by = k1_bound([(B, 401), (B, 201)], k, C)
-    out = {"ms": device_ms(batch_kernel), "plain_ms": device_ms(batch_plain),
-           "library_ms": device_ms(batch_library),
+    out = {"ms": device_ms(batch_kernel, what=f"k1 B={B}"),
+           "plain_ms": device_ms(batch_plain, what=f"k1_plain B={B}"),
+           "library_ms": device_ms(batch_library, what=f"k1_library B={B}"),
            "call_ms": cuda_ms(batch_kernel),
            "plain_call_ms": cuda_ms(batch_plain),
            "library_call_ms": cuda_ms(batch_library),
@@ -571,7 +605,9 @@ def time_stem(inputs, tables, grads, jstars, k):
             torch.autograd.grad(out, (w, b), g, retain_graph=True)
             for (_, w, b, out, g) in lib],
     }
-    out = {f"{name}_ms": device_ms(fn) for name, fn in fns.items()}
+    B = len(inputs[0])
+    out = {f"{name}_ms": device_ms(fn, what=f"{name} B={B}")
+           for name, fn in fns.items()}
     out.update({f"{name}_call_ms": cuda_ms(fn) for name, fn in fns.items()})
     return out
 
@@ -737,21 +773,32 @@ def phase_train_step(dev, seed):
     return max(rel), rel_cpu, timing
 
 
-def device_events(fn):
+def device_events(fn, attempts=3):
     """(name, start us, duration us) of each device event (kernels and
     copies) that torch.profiler records while ``fn`` runs, in start
-    order; ``fn`` ends in a synchronise or the caller's next one."""
+    order; ``fn`` ends in a synchronise or the caller's next one. Now and
+    then the profiler hands back a trace without its device events; the
+    capture (``fn`` included) is then made again, up to ``attempts``
+    times in all, and an empty list means that every one came back so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sorted(((e.name, e.time_range.start, e.time_range.elapsed_us())
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA),
-                  key=lambda e: e[1])
+    events = []
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = sorted(((e.name, e.time_range.start,
+                          e.time_range.elapsed_us())
+                         for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e[1])
+        if events:
+            break
+        log("torch.profiler's capture held no device events")
+        time.sleep(0.1)
+    return events
 
 
 def device_busy_ms(fn) -> float:
@@ -903,31 +950,8 @@ _EPOCH_LINE = re.compile(
     r"evaluation ([\d.]+)s\)")
 
 
-def cli_train(cli, work, fasta, bed, name, cuda_id, extra):
-    """One ``train`` run through the CLI from ``work``; returns its trial
-    directory, the per-epoch records of its log and the K2/K3 launches
-    counted from 0 just before it."""
-    import torch
-    from mural_tpu_torch.ops import fused_train_stem as fts
-    argv = ["train", "--ref_genome", fasta, "--train_data", bed,
-            "--experiment_name", name, "--n_trials", "1", "--batch_size",
-            str(TRAIN_BATCH), "--valid_ratio", "0.2", "--split_seed", "0",
-            "--cuda_id", str(cuda_id), *extra]
-    fts.FWD_LAUNCHES = fts.BWD_LAUNCHES = 0
-    cwd = os.getcwd()
-    os.chdir(work)
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rc = cli(argv)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-    finally:
-        os.chdir(cwd)
-    launches = (fts.FWD_LAUNCHES, fts.BWD_LAUNCHES)
-    exp = work / "results" / name
-    trials = sorted(d for d in os.listdir(exp) if d.startswith("Train_"))
-    trial = exp / trials[0]
+def trial_epochs(trial: Path):
+    """The per-epoch records of a trial's ``training.log``."""
     epochs = [dict(zip(("epoch", "epoch_s", "train_steps", "train_s",
                         "valid_batches", "valid_s", "calib_ckpt_s",
                         "evaluation_s"),
@@ -938,7 +962,39 @@ def cli_train(cli, work, fasta, bed, name, cuda_id, extra):
     for e in epochs:
         e["train_windows_per_s"] = e["train_steps"] * TRAIN_BATCH \
             / e["train_s"]
-    return {"rc": rc, "seconds": seconds, "trial": trial, "epochs": epochs,
+    return epochs
+
+
+def cli_train(cli, work, fasta, bed, name, cuda_id, extra,
+              command="train"):
+    """One ``train`` (or ``transfer``) run through the CLI from ``work``;
+    returns its first trial's directory and per-epoch records (every
+    trial's in ``trials``), its printed lines and the K2/K3 launches
+    counted from 0 just before it."""
+    import torch
+    from mural_tpu_torch.ops import fused_train_stem as fts
+    argv = [command, "--ref_genome", fasta, "--train_data", bed,
+            "--experiment_name", name, "--n_trials", "1", "--batch_size",
+            str(TRAIN_BATCH), "--valid_ratio", "0.2", "--split_seed", "0",
+            "--cuda_id", str(cuda_id), *extra]
+    fts.FWD_LAUNCHES = fts.BWD_LAUNCHES = 0
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, _, lines = run_cli(cli, argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    launches = (fts.FWD_LAUNCHES, fts.BWD_LAUNCHES)
+    exp = work / "results" / name
+    trials = {d: trial_epochs(exp / d) for d in sorted(os.listdir(exp))
+              if d.startswith("Train_")}
+    first = min(trials, key=lambda d: d.rsplit("_", 1)[-1])
+    return {"rc": rc, "seconds": seconds, "trial": exp / first,
+            "epochs": trials[first], "trials": trials, "lines": lines,
             "k2": launches[0], "k3": launches[1], "n_trials": len(trials)}
 
 
@@ -1034,6 +1090,7 @@ def phase_train_cli(work, fasta, bed, n_train, cuda_id):
     })
     log(f"train --fused_stem off: {off['seconds']:.3f} s; epochs "
         + json.dumps(off["epochs"]))
+    run["best_model"] = model_path
     return run, off
 
 
@@ -1397,7 +1454,7 @@ def phase_indel_cli(work, fasta, bed, train_bed, cuda_id):
             "predict_sites_per_s": pred["sites_per_s"],
             "evaluate_s": ev_s,
             "corr_4mer": [r[2] for r in corrs[0]] if corrs else None,
-            "launches": launches}
+            "launches": launches, "best_model": model_path}
 
 
 def phase_indel(work, fasta, model_path, beds, dev, seed):
@@ -1647,11 +1704,13 @@ def phase_family_models(dev, seed):
     return {"card_vs_cpu": errs, "steps_fused_vs_unfused": steps}
 
 
-def write_family_bed(work: Path, train_bed: str) -> str:
-    """Every third site of the training BED (still sorted): the phase's
-    20,000-site training set."""
+def write_family_bed(work: Path, train_bed: str,
+                     name: str = "family_train.bed") -> str:
+    """Every third site of a BED (still sorted), at most FAMILY_TRAIN:
+    phase 10's 20,000-site training set from the training BED, and
+    phase 11's search set from that."""
     rows = Path(train_bed).read_text().splitlines()[::3][:FAMILY_TRAIN]
-    path = work / "family_train.bed"
+    path = work / name
     path.write_text("\n".join(rows) + "\n")
     return str(path)
 
@@ -1787,12 +1846,408 @@ def phase_family(work, rng, fasta, bed, train_bed, dev, seed):
     return {"tracks": tracks, "models": models, **cli}
 
 
-def kernel_records(k1, k23, k1_launches, train_on, family=None):
+# --- phase 11: transfer, convert and the trial search --------------------
+
+SEARCH_TRIALS = 4       # trials of the ASHA search
+SEARCH_EPOCHS = 3       # its max_t (rungs at epochs 1 and 2)
+
+
+def metrics_of(trial: Path, epoch: int) -> dict:
+    path = trial / f"checkpoint_{epoch}" / f"epoch_{epoch}_metrics.txt"
+    return (dict(line.split(": ", 1) for line in
+                 path.read_text().splitlines()) if path.exists() else {})
+
+
+def finite_metrics(trial: Path, epoch: int,
+                   keys=("loss", "fdiri_loss", "score")) -> bool:
+    m = metrics_of(trial, epoch)
+    return all(np.isfinite(float(m.get(k, "nan"))) for k in keys)
+
+
+def saved_config(model_path) -> dict:
+    with open(str(model_path) + ".config.pkl", "rb") as fh:
+        return pickle.load(fh)
+
+
+def reference_layout(model) -> dict:
+    """``model``'s state_dict as the reference MuRaL writes it: each
+    ResBlock's layers again under ``layer.{1,2,4,5}``, the BN
+    ``num_batches_tracked`` counters and, for an SNV model without
+    continuous features, ``first_bn_layer = BatchNorm1d(0)``."""
+    import torch
+    sd = dict(model.state_dict())
+    for name in list(sd):
+        parts = name.split(".")
+        if parts[0].startswith("RBs") and parts[2] in ("bn1", "conv1",
+                                                      "bn2", "conv2"):
+            idx = {"bn1": 1, "conv1": 2, "bn2": 4, "conv2": 5}[parts[2]]
+            sd[".".join(parts[:2] + ["layer", str(idx)] + parts[3:])] = \
+                sd[name]
+    for leaf in ("weight", "bias", "running_mean", "running_var"):
+        sd[f"first_bn_layer.{leaf}"] = torch.zeros(0)
+    sd["first_bn_layer.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+@contextlib.contextmanager
+def watched_runner(seed):
+    """The trial runner as the CLI calls it, with three probes: the
+    search samples its configs and trial ids from ``seed`` (the CLI
+    draws them from the OS), every in-process trial is recorded with the
+    number of trials running at its start, and every trial process's
+    wall seconds are kept."""
+    import dataclasses
+    import threading
+    from mural_tpu_torch.tune import runner
+    real = (runner.run_experiment, runner.train_trial,
+            runner._run_trial_in_process)
+    lock = threading.Lock()
+    seen = {"running": 0, "trials": [], "process_s": {}}
+
+    def run_experiment(space, opts, model_type, exp, **kw):
+        return real[0](space, opts, model_type,
+                       dataclasses.replace(exp, seed=seed), **kw)
+
+    def train_trial(config, opts, *a, **kw):
+        with lock:
+            seen["running"] += 1
+            seen["trials"].append((os.path.basename(opts.trial_dir),
+                                   seen["running"], str(opts.device)))
+        try:
+            return real[1](config, opts, *a, **kw)
+        finally:
+            with lock:
+                seen["running"] -= 1
+
+    def run_trial_in_process(trial_id, *a, **kw):
+        t0 = time.perf_counter()
+        out = real[2](trial_id, *a, **kw)
+        seen["process_s"][trial_id] = time.perf_counter() - t0
+        return out
+
+    (runner.run_experiment, runner.train_trial,
+     runner._run_trial_in_process) = (run_experiment, train_trial,
+                                      run_trial_in_process)
+    try:
+        yield seen
+    finally:
+        (runner.run_experiment, runner.train_trial,
+         runner._run_trial_in_process) = real
+
+
+def phase_transfer(work, fasta, bed, family_bed, snv_model, cuda_id):
+    """``mural_snv transfer --fused_stem on`` from phase 7's best triple
+    (final FCs re-initialised), then ``predict --fused_inference`` of the
+    transferred triple on the predict BED."""
+    from mural_tpu_torch.cli.mural_snv import main as cli
+    saved = saved_config(snv_model)
+    run = cli_train(cli, work, fasta, family_bed, "transfer", cuda_id, [
+        "--model_path", snv_model, "--model_config_path",
+        snv_model + ".config.pkl", "--fused_stem", "on", "--epochs", "1"],
+        command="transfer")
+    trial, epochs = run["trial"], run["epochs"]
+    steps = sum(e["train_steps"] for e in epochs)
+    vbatches = sum(e["valid_batches"] for e in epochs)
+    model_path = str(trial / "checkpoint_0" / "model")
+    config = saved_config(model_path) if os.path.exists(
+        model_path + ".config.pkl") else {}
+    check_all("mural_snv transfer --fused_stem on", {
+        "exit code 0, one trial, one epoch": run["rc"] == 0
+        and run["n_trials"] == 1 and len(epochs) == 1,
+        "checkpoint_0 holds the triple": all(
+            os.path.exists(model_path + ext)
+            for ext in ("", ".config.pkl", ".fdiri_cal.pkl")),
+        "finite loss, fdiri_loss and score": finite_metrics(trial, 0),
+        "n_class and model_no from the pretrained config, a transfer":
+            config.get("n_class") == saved["n_class"] == 4
+            and config.get("model_no") == saved["model_no"] == 2
+            and config.get("transfer_learning") is True,
+        "the --train_all warning printed": any(
+            line.startswith("Warning: --train_all is required")
+            for line in run["lines"]),
+        f"K2 launched 2 x ({steps} train steps + {vbatches} validation "
+        f"batches)": run["k2"] == 2 * (steps + vbatches),
+        f"K3 launched 2 x {steps} train steps": run["k3"] == 2 * steps,
+    })
+    windows = epochs[0]["train_windows_per_s"] if epochs else math.nan
+    log(f"mural_snv transfer: {run['seconds']:.3f} s, {windows:.1f} train "
+        f"windows/s; K2 {run['k2']}, K3 {run['k3']}; epochs "
+        + json.dumps(epochs))
+
+    n_sites = sum(1 for _ in open(bed))
+    pred = cli_predict(cli, [
+        "--ref_genome", fasta, "--test_data", bed,
+        "--model_path", model_path,
+        "--model_config_path", model_path + ".config.pkl",
+        "--calibrator_path", model_path + ".fdiri_cal.pkl",
+        "--pred_batch_size", str(BATCH), "--cuda_id", str(cuda_id)],
+        str(work / "pred_transferred.tsv.gz"), ["--fused_inference"])
+    header, keys, probs = pred["tsv"]
+    n_batches = math.ceil(n_sites / BATCH)
+    check_all("predict --fused_inference of the transferred triple", {
+        "exit code 0": pred["rc"] == 0,
+        "TSV schema": header == TSV_HEADER,
+        f"{n_sites} rows": len(keys) == n_sites,
+        "probabilities finite and summing to 1": bool(
+            np.isfinite(probs).all()
+            and np.abs(probs.sum(1) - 1).max() <= 1e-3),
+        f"K1 launched 2 x {n_batches} batches":
+            pred["launches"] == 2 * n_batches,
+    })
+    pred["sites_per_s"] = n_sites / pred["seconds"]
+    log(f"predict of the transferred triple: {pred['seconds']:.3f} s, "
+        f"{pred['sites_per_s']:.1f} sites/s, K1 launches "
+        f"{pred['launches']}")
+    return {"seconds": run["seconds"], "epochs": epochs,
+            "train_windows_per_s": windows, "k2": run["k2"],
+            "k3": run["k3"], "predict_s": pred["seconds"],
+            "predict_sites_per_s": pred["sites_per_s"],
+            "k1": pred["launches"]}
+
+
+def phase_indel_transfer(work, fasta, train_bed, indel_model, cuda_id):
+    """``mural_indel transfer --init_fc_with_pretrained`` from phase 9's
+    best triple: no kernel of the port launches."""
+    from mural_tpu_torch.cli.mural_indel import main as cli
+    (run, launches) = counted(lambda: cli_train(
+        cli, work, fasta, train_bed, "indel_transfer", cuda_id, [
+            "--model_path", indel_model, "--model_config_path",
+            indel_model + ".config.pkl", "--init_fc_with_pretrained",
+            "--epochs", "1"], command="transfer"))
+    saved = saved_config(indel_model)
+    model_path = run["trial"] / "checkpoint_0" / "model"
+    config = (saved_config(model_path) if os.path.exists(
+        str(model_path) + ".config.pkl") else {})
+    check_all("mural_indel transfer --init_fc_with_pretrained", {
+        "exit code 0, one epoch": run["rc"] == 0
+        and len(run["epochs"]) == 1,
+        "finite loss, fdiri_loss and score": finite_metrics(run["trial"],
+                                                            0),
+        "n_class 8 and the U-Net from the pretrained config":
+            config.get("n_class") == saved["n_class"] == 8
+            and config.get("down_list") == saved["down_list"],
+        "K1, K2 and K3 launched 0 times": list(launches) == [0, 0, 0],
+    })
+    log(f"mural_indel transfer: {run['seconds']:.3f} s; epochs "
+        + json.dumps(run["epochs"]))
+    return {"seconds": run["seconds"], "epochs": run["epochs"],
+            "launches": list(launches)}
+
+
+def phase_convert(work, snv_model, dev, seed):
+    """``mural_snv convert`` of a reference-layout triple written from
+    phase 7's weights: the converted model's forward on the card equals
+    the source's bit for bit."""
+    import torch
+    from mural_tpu_torch.cli.mural_snv import main as cli
+    from mural_tpu_torch.models.layers import one_hot_from_codes
+    from mural_tpu_torch.utils.zoo import input_geometry, load_zoo_checkpoint
+    ref, out = work / "reference_ckpt", work / "converted_ckpt"
+    ref.mkdir()
+    model, config, _ = load_zoo_checkpoint(os.path.dirname(snv_model))
+    torch.save(reference_layout(model), ref / "model")
+    for ext in (".config.pkl", ".fdiri_cal.pkl"):
+        shutil.copy(snv_model + ext, ref / f"model{ext}")
+    rc, seconds, _ = run_cli(cli, ["convert", "--checkpoint_dir", str(ref),
+                                   "--out_dir", str(out), "--cuda_id",
+                                   str(dev.index or 0)])
+    gen = torch.Generator().manual_seed(seed)
+    n_cat, w = input_geometry(config, "snv")
+    cat = torch.randint(0, 4 ** config["local_order"] + 1, (BATCH, n_cat),
+                        generator=gen).to(dev)
+    distal = one_hot_from_codes(random_codes(gen, BATCH, w, dev))
+    outs = []
+    for d in (ref, out):
+        m, _, _ = load_zoo_checkpoint(str(d))
+        with torch.no_grad():
+            outs.append(m.to(dev)(cat, distal))
+    diff = float((outs[0] - outs[1]).abs().max())
+    blob = (out / "model.fdiri_cal.pkl").read_bytes() if (
+        out / "model.fdiri_cal.pkl").exists() else b""
+    check_all("mural_snv convert of a reference-layout triple", {
+        "exit code 0": rc == 0,
+        "the triple written": all((out / f).exists() for f in (
+            "model", "model.config.pkl", "model.fdiri_cal.pkl")),
+        "the calibrator re-pickled onto mural_tpu_torch classes":
+            b"mural_tpu_torch" in blob and b"dirichletcal" not in blob,
+        f"forward at B={BATCH} on the card bit-identical": diff == 0.0,
+    })
+    log(f"convert: {seconds:.3f} s; forward max |diff| {diff}")
+    return {"seconds": seconds, "max_abs_diff": diff}
+
+
+def phase_search(work, fasta, search_bed, cuda_id, seed):
+    """The trial search through ``mural_snv train``: ASHA over four
+    trials in threads, ``--n_parallel 2`` on the one card, two trials in
+    spawned processes, and ``--rerun_failed`` of a planted error."""
+    from mural_tpu_torch.cli.mural_snv import main as cli
+    from mural_tpu_torch.train.early_stopping import EarlyStopping
+    from mural_tpu_torch.tune.asha import ASHAScheduler
+    from mural_tpu_torch.tune.runner import AFTER_MIN_LOSS_STOP
+    out = {}
+
+    # ASHA over four trials (threads, the fused stem)
+    with watched_runner(seed):
+        run = cli_train(cli, work, fasta, search_bed, "search", cuda_id, [
+            "--use_ray", "--n_trials", str(SEARCH_TRIALS), "--epochs",
+            str(SEARCH_EPOCHS), "--grace_period", "1", "--learning_rate",
+            "1e-4", "1e-2", "--fused_stem", "on"])
+    exp = work / "results" / "search"
+    trials = run["trials"]
+    # a trial's last epoch logs no epoch line when EarlyStopping (its
+    # patience is the grace period) ends it: count the epochs by their
+    # metrics files, each with the steps and batches of the first
+    ran = {name: len([d for d in os.listdir(exp / name)
+                      if d.startswith("checkpoint_")]) for name in trials}
+    steps = sum(ran[t] * e[0]["train_steps"] for t, e in trials.items())
+    vbatches = sum(ran[t] * e[0]["valid_batches"]
+                   for t, e in trials.items())
+    # the stops these losses owe the runner's rules, replayed in launch
+    # order (the trials ran one after another): after_min_loss, then
+    # ASHA, then EarlyStopping
+    asha = ASHAScheduler(max_t=SEARCH_EPOCHS, grace_period=1)
+    want, rung_stops = {}, {}
+    for name in sorted(trials, key=lambda d: d.rsplit("_", 1)[-1]):
+        es = EarlyStopping(patience=1, trace_func=lambda *a: None)
+        for epoch in range(SEARCH_EPOCHS):
+            m = {k: float(v) for k, v in metrics_of(exp / name,
+                                                    epoch).items()}
+            if not m:
+                break
+            want[name] = epoch + 1
+            keep = m["after_min_loss"] < AFTER_MIN_LOSS_STOP
+            if keep and not asha.on_report(name, epoch + 1, m):
+                keep, rung_stops[name] = False, epoch + 1
+            es(m["loss"])
+            if not keep or es.early_stop:
+                break
+    table = [line for line in run["lines"] if line.startswith("| Train_")]
+    best = (exp / "best_models.txt").read_text().splitlines() if (
+        exp / "best_models.txt").exists() else []
+    check_all("train --use_ray (ASHA, threads)", {
+        "exit code 0": run["rc"] == 0,
+        f"{SEARCH_TRIALS} trial directories": run["n_trials"]
+        == SEARCH_TRIALS,
+        "every trial stopped where the runner's rules say (after_min_loss, "
+        "ASHA, EarlyStopping)":
+            ran == want,
+        "at least one trial stopped at a rung": bool(rung_stops),
+        "the progress table printed with every trial": len(
+            {row.split()[1] for row in table}) == SEARCH_TRIALS,
+        f"best_models.txt lists {SEARCH_TRIALS} checkpoints":
+            len(best) == SEARCH_TRIALS,
+        f"K2 launched 2 x ({steps} train steps + {vbatches} validation "
+        f"batches) over all trials": run["k2"] == 2 * (steps + vbatches),
+        f"K3 launched 2 x {steps} train steps": run["k3"] == 2 * steps,
+    })
+    out["asha"] = {"seconds": run["seconds"], "k2": run["k2"],
+                   "k3": run["k3"], "trials": {
+                       name: {"epochs": ran[name], "stopped_at_rung":
+                              rung_stops.get(name),
+                              "learning_rate": saved_config(
+                                  exp / name / "checkpoint_0" / "model"
+                              ).get("learning_rate")}
+                       for name in trials}}
+    log(f"search (ASHA, {SEARCH_TRIALS} trials, max {SEARCH_EPOCHS} "
+        f"epochs): {run['seconds']:.3f} s wall; " + json.dumps(
+            out["asha"]["trials"]))
+
+    # --n_parallel 2 on one card: one trial at a time; then a planted
+    # error.txt and --rerun_failed
+    with watched_runner(seed) as seen:
+        par = cli_train(cli, work, fasta, search_bed, "parallel", cuda_id,
+                        ["--n_trials", "2", "--epochs", "1",
+                         "--n_parallel", "2"])
+        planted = sorted(par["trials"])[0]
+        (work / "results" / "parallel" / planted / "error.txt").write_text(
+            "planted\n")
+        first = list(seen["trials"])
+        rerun = cli_train(cli, work, fasta, search_bed, "parallel",
+                          cuda_id, ["--n_trials", "2", "--epochs", "1",
+                                    "--rerun_failed"])
+    again = seen["trials"][len(first):]
+    check_all("train --n_parallel 2, then --rerun_failed", {
+        "exit codes 0": par["rc"] == 0 and rerun["rc"] == 0,
+        "two trials, one at a time on the one card": len(first) == 2
+        and max(n for _, n, _ in first) == 1,
+        "--rerun_failed re-ran only the planted trial":
+            [t for t, _, _ in again] == [planted],
+        "no error.txt left": not any(
+            (work / "results" / "parallel" / t / "error.txt").exists()
+            for t in par["trials"]),
+    })
+    out["n_parallel_s"], out["rerun_s"] = par["seconds"], rerun["seconds"]
+    log(f"--n_parallel 2: {par['seconds']:.3f} s for 2 trials; "
+        f"--rerun_failed: {rerun['seconds']:.3f} s for 1")
+
+    # two trials in spawned processes, on the card with the fused stem
+    with watched_runner(seed) as seen:
+        proc = cli_train(cli, work, fasta, search_bed, "process", cuda_id,
+                         ["--n_trials", "2", "--epochs", "1",
+                          "--trial_executor", "process", "--fused_stem",
+                          "on"])
+    pexp = work / "results" / "process"
+    startup = {}
+    for name in proc["trials"]:
+        text = (pexp / name / "training.log").read_text()
+        m = re.search(r"training finished, total time ([\d.]+)s", text)
+        if m and name in seen["process_s"]:
+            startup[name] = seen["process_s"][name] - float(m[1])
+    check_all("train --trial_executor process", {
+        "exit code 0, two trials": proc["rc"] == 0
+        and proc["n_trials"] == 2,
+        "no error.txt": not any((pexp / t / "error.txt").exists()
+                                for t in proc["trials"]),
+        # the regional score needs more validation sites than this set's
+        "each child trained on the card with the fused stem (finite "
+        "loss and fdiri_loss)": all(
+            "fused train stem: on" in (pexp / t / "training.log").read_text()
+            and finite_metrics(pexp / t, 0, ("loss", "fdiri_loss"))
+            for t in proc["trials"]),
+        "no trial ran in this process": not seen["trials"],
+    })
+    out["process"] = {"seconds": proc["seconds"], "startup_s": startup,
+                      "epochs": proc["trials"]}
+    log("--trial_executor process: "
+        f"{proc['seconds']:.3f} s for 2 trials; each child's start-up "
+        "before train_trial (spawn, imports, CUDA init) in s: "
+        + json.dumps(startup))
+    return out
+
+
+def phase_transfer_search(work, fasta, bed, train_bed, indel_train_bed,
+                          snv_model, indel_model, dev, seed):
+    """Phase 11: transfer, convert and the trial search."""
+    family_bed = write_family_bed(work, train_bed)
+    search_bed = write_family_bed(work, family_bed, "search.bed")
+    cuda_id = dev.index or 0
+    return {
+        "transfer": phase_transfer(work, fasta, bed, family_bed, snv_model,
+                                   cuda_id),
+        "indel_transfer": phase_indel_transfer(work, fasta, indel_train_bed,
+                                               indel_model, cuda_id),
+        "convert": phase_convert(work, snv_model, dev, seed),
+        "search": phase_search(work, fasta, search_bed, cuda_id, seed)}
+
+
+def kernel_records(k1, k23, k1_launches, train_on, family=None,
+                   later=None):
     """The kernels' JSON records from phases 2-3; ``launches`` come from
     the main path's runs (None when it did not run): K1 from phase 6's
     fused predict, K2/K3 from phase 7's fused train; ``launches_phase10``
     from phase 10's runs (``family``: K1 on its predicts, K2/K3 on each
-    train run)."""
+    train run); ``launches_phase11`` from phase 11's runs in this process
+    (``later``: K1 on the transferred predict, K2/K3 on the SNV transfer
+    and the ASHA search; all three on the INDEL transfer)."""
+    p11 = None
+    if later is not None:
+        tr, ind = later["transfer"], later["indel_transfer"]["launches"]
+        asha = later["search"]["asha"]
+        p11 = [{"predict_transferred": tr["k1"], "indel_transfer": ind[0]},
+               {"transfer": tr["k2"], "search": asha["k2"],
+                "indel_transfer": ind[1]},
+               {"transfer": tr["k3"], "search": asha["k3"],
+                "indel_transfer": ind[2]}]
     per_step = (f"one train step: B={TRAIN_BATCH} at L=401 (pool 15) and "
                 f"the L=201 crop (pool 3)")
     t128 = k23["timings"][TRAIN_BATCH]
@@ -1809,6 +2264,7 @@ def kernel_records(k1, k23, k1_launches, train_on, family=None):
         "per": f"one predict batch: B={BATCH} at L=401 and the L=201 crop",
         "at_b256": k1["at_b256"],
         "launches_phase10": family and family["k1_launches"],
+        "launches_phase11": p11 and p11[0],
     }, {
         "name": "code_conv_pool_fwd", "route": "cuda",
         "source": "mural_tpu_torch/ops/csrc/code_conv_pool.cu",
@@ -1821,6 +2277,7 @@ def kernel_records(k1, k23, k1_launches, train_on, family=None):
         "bound_ms_b2048": k23["bound_k2_b2048"][0], "at_b128": t128, "at_b2048": k23["timings"][2048],
         "launches_phase10": family and {
             name: run["k2"] for name, run in family["train"].items()},
+        "launches_phase11": p11 and p11[1],
     }, {
         "name": "code_conv_pool_bwd", "route": "cuda",
         "source": "mural_tpu_torch/ops/csrc/code_conv_pool.cu",
@@ -1834,6 +2291,7 @@ def kernel_records(k1, k23, k1_launches, train_on, family=None):
         "bound_ms_b2048": k23["bound_k3_b2048"][0], "at_b128": t128, "at_b2048": k23["timings"][2048],
         "launches_phase10": family and {
             name: run["k3"] for name, run in family["train"].items()},
+        "launches_phase11": p11 and p11[2],
     }]
     return kernels
 
@@ -1906,6 +2364,7 @@ def main(argv=None) -> int:
         log(json.dumps({"kernels": kernel_records(k1, k23, None, None)}))
         log(json.dumps({"card": card, "build_s": t_build,
                         "phase_s": phase_s,
+                        "timed_with_cuda_events": TIMED_WITH_EVENTS,
                         "total_s": time.perf_counter() - t_start}))
         return 0
     # 4-5. model and train step on the card
@@ -1928,11 +2387,15 @@ def main(argv=None) -> int:
     family = timed("snv_family", phase_family, work,
                    np.random.default_rng(args.seed + 10), fasta, bed,
                    train_bed, dev, args.seed)
+    # 11. transfer, convert and the trial search
+    later = timed("transfer_search", phase_transfer_search, work, fasta,
+                  bed, train_bed, indel_beds[1], train_on.pop("best_model"),
+                  indel["cli"].pop("best_model"), dev, args.seed)
     shutil.rmtree(work, ignore_errors=True)
 
-    # 11. results
+    # 12. results
     log(json.dumps({"kernels": kernel_records(
-        k1, k23, fused["launches"], train_on, family)}))
+        k1, k23, fused["launches"], train_on, family, later)}))
     log(json.dumps({
         "card": card, "build_s": t_build,
         "model_max_abs_err": model_err, **fwd_ms,
@@ -1950,10 +2413,12 @@ def main(argv=None) -> int:
         "train_unfused_epochs": train_off["epochs"],
         "indel": indel,
         "snv_family": family,
+        "transfer_search": later,
         "n_sites": args.n_sites, "n_train": args.n_train,
         "n_indel_sites": INDEL_SITES,
         "n_indel_train": INDEL_TRAIN, "batch": BATCH,
         "train_batch": TRAIN_BATCH, "phase_s": phase_s,
+        "timed_with_cuda_events": TIMED_WITH_EVENTS,
         "total_s": time.perf_counter() - t_start}))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """argparse builders of the ported sub-commands (counterpart of
-``mural_tpu/cli/commands.py``): ``train``, ``predict``,
-``get_best_model``, ``evaluate``, ``scale`` and ``calc_scaling_factor``,
-with the JAX package's flags and defaults.
+``mural_tpu/cli/commands.py``): ``train``, ``transfer``, ``predict``,
+``get_best_model``, ``evaluate``, ``scale``, ``calc_scaling_factor`` and
+``convert``, with the JAX package's flags and defaults.
 ``--cpu_only`` and ``--cuda_id`` have their reference meaning: the run
 goes to CUDA device ``--cuda_id`` (default the current one) unless
 ``--cpu_only`` is given.  Flags of options this port does not run yet
@@ -91,7 +91,8 @@ def _learning_args(p, lr_default):
 def _scheduler_args(p, default_experiment):
     g = p.add_argument_group("Trial-scheduler arguments")
     g.add_argument("--use_ray", default=False, action="store_true",
-                   help="ASHA trial scheduler (not ported yet).")
+                   help="Use the ASHA trial scheduler with hyperparameter "
+                        "search over the provided value lists.")
     g.add_argument("--experiment_name", type=str, metavar="STR",
                    default=default_experiment,
                    help="Experiment name. Default: %(default)s.")
@@ -102,7 +103,9 @@ def _scheduler_args(p, default_experiment):
     g.add_argument("--grace_period", type=int, metavar="INT", default=5,
                    help="Min epochs before early stopping. Default: 5.")
     g.add_argument("--ASHA_metric", type=str, metavar="STR",
-                   default="loss", help=argparse.SUPPRESS)
+                   default="loss",
+                   help="Metric for ASHA ('loss' or 'fdiri_loss'). "
+                        "Default: loss.")
     for flag, kind, default in (("--ray_ncpus", int, 2),
                                 ("--ray_ngpus", int, 1),
                                 ("--cpu_per_trial", int, 2),
@@ -111,12 +114,13 @@ def _scheduler_args(p, default_experiment):
                        help=argparse.SUPPRESS)
     _device_args(g)
     g.add_argument("--n_parallel", type=int, metavar="INT", default=1,
-                   help="Concurrent trials (only 1 is ported). "
+                   help="Trials run concurrently, one per CUDA device. "
                         "Default: 1.")
     g.add_argument("--trial_executor", type=str, metavar="MODE",
                    default="thread", choices=["thread", "process"],
-                   help="Concurrent-trial executor ('process' is not "
-                        "ported yet). Default: thread.")
+                   help="Trial executor: 'thread' (one process) or "
+                        "'process' (a spawned process per trial). "
+                        "Default: thread.")
     g.add_argument("--trial_ensemble", type=str, metavar="MODE",
                    default="off", choices=["off", "auto"],
                    help="Vmapped trial ensembles ('auto' is not ported "
@@ -127,7 +131,7 @@ def _scheduler_args(p, default_experiment):
     g.add_argument("--profile_dir", type=str, metavar="DIR", default=None,
                    help="Profiler trace directory (not ported yet).")
     g.add_argument("--rerun_failed", default=False, action="store_true",
-                   help="Re-run errored trials (not ported yet).")
+                   help="Re-run errored trials of a previous experiment.")
     return g
 
 
@@ -234,6 +238,68 @@ def add_train_parser(subparsers, model_type: str):
     _learning_args(p, [0.001])
     _scheduler_args(p, f"{model_type}_experiment")
     p.set_defaults(func="train")
+    return p
+
+
+def add_transfer_parser(subparsers, model_type: str):
+    p = subparsers.add_parser(
+        "transfer", help="Transfer learning from a trained model",
+        formatter_class=argparse.RawTextHelpFormatter)
+    req = p.add_argument_group("Required arguments")
+    req.add_argument("--ref_genome", type=str, metavar="FILE", default="",
+                     required=True, help="Reference genome FASTA.")
+    req.add_argument("--train_data", type=str, metavar="FILE", default="",
+                     required=True, help="Sorted training BED file.")
+    req.add_argument("--model_path", type=str, metavar="FILE",
+                     required=True, help="Pre-trained checkpoint "
+                     "('model' file: a torch state_dict or a mural_tpu "
+                     "msgpack file).")
+    req.add_argument("--model_config_path", type=str, metavar="FILE",
+                     required=True, help="Pickled config of the "
+                     "pre-trained model.")
+    m = p.add_argument_group("Model-related arguments")
+    m.add_argument("--train_all", default=False, action="store_true",
+                   help="Fine-tune all parameters (else only final FCs).")
+    m.add_argument("--init_fc_with_pretrained", default=False,
+                   action="store_true",
+                   help="Keep pre-trained final FC weights instead of "
+                        "re-initialising them.")
+    m.add_argument("--n_class", type=int, metavar="INT",
+                   default=4 if model_type == "snv" else 8,
+                   help="Number of mutation classes.")
+    _data_args(p)
+    _learning_args(p, [0.0001])
+    c = p.add_argument_group("Calibration-related arguments")
+    c.add_argument("--poisson_calib", default=False, action="store_true",
+                   help="Poisson-based probability calibration.")
+    _scheduler_args(p, "my_experiment")
+    # segment_center and sampled_segments come from the checkpoint config
+    # unless given (ref commands/transfer.py:98-109)
+    p.set_defaults(func="transfer", segment_center=None,
+                   sampled_segments=None)
+    return p
+
+
+def add_convert_parser(subparsers, model_type: str):
+    """``convert``: write a reference torch checkpoint directory or a
+    mural_tpu one (state_dict or msgpack, config and calibrator pickles)
+    as this package's triple."""
+    p = subparsers.add_parser(
+        "convert", help="Convert a reference or mural_tpu checkpoint "
+        "directory to this package's checkpoint triple",
+        formatter_class=argparse.RawTextHelpFormatter)
+    req = p.add_argument_group("Required arguments")
+    req.add_argument("--checkpoint_dir", required=True, type=str,
+                     metavar="DIR",
+                     help="Checkpoint directory holding 'model' (torch "
+                          "state_dict or mural_tpu msgpack), "
+                          "'model.config.pkl' and optionally "
+                          "'model.fdiri_cal.pkl'.")
+    req.add_argument("--out_dir", required=True, type=str, metavar="DIR",
+                     help="Output directory for the triple (created if "
+                          "missing).")
+    _device_args(p.add_argument_group("Device arguments"))
+    p.set_defaults(func="convert")
     return p
 
 

@@ -1,21 +1,26 @@
 """CLI dispatch for mural_snv and mural_indel (counterpart of
 ``mural_tpu/cli/main.py``).
 
-``train`` (standalone trials, one after another), ``predict``,
-``evaluate``, ``scale``, ``calc_scaling_factor`` and ``get_best_model``
-are ported; the reference's other sub-commands raise
-``NotImplementedError`` naming their ROADMAP.md item.
+``train`` (standalone trials, or an ASHA-scheduled search with
+``--use_ray``, on one or several devices, in threads or processes),
+``transfer``, ``predict``, ``evaluate``, ``scale``,
+``calc_scaling_factor``, ``get_best_model`` and ``convert`` are ported;
+``predict_genome`` raises ``NotImplementedError`` naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
 from mural_tpu_torch.cli import commands as C
+from mural_tpu_torch.tune.space import (Choice, SampleFrom,
+                                        loguniform_or_choice)
 
-_NOT_PORTED = {"transfer": 7, "convert": 7, "predict_genome": 9}
+_NOT_PORTED = {"predict_genome": 9}
 
 
 def create_parser(model_type: str) -> argparse.ArgumentParser:
@@ -28,11 +33,13 @@ def create_parser(model_type: str) -> argparse.ArgumentParser:
         formatter_class=argparse.RawTextHelpFormatter)
     sub = parser.add_subparsers(dest="command")
     C.add_train_parser(sub, model_type)
+    C.add_transfer_parser(sub, model_type)
     C.add_predict_parser(sub, model_type)
     C.add_evaluate_parser(sub, model_type)
     C.add_scale_parser(sub, model_type)
     C.add_calc_scaling_factor_parser(sub, model_type)
     C.add_get_best_model_parser(sub, model_type)
+    C.add_convert_parser(sub, model_type)
     return parser
 
 
@@ -40,41 +47,53 @@ def _abspath(p):
     return os.path.abspath(p) if p else p
 
 
-def _build_config(args, model_type: str) -> dict:
-    """The standalone trial config: the first value of each list flag
-    (``mural_tpu/cli/main.py:45-92``)."""
+def _build_space(args, model_type: str) -> dict:
+    """The trial config of ``train``: the first value of each list flag
+    (standalone), or with ``--use_ray`` a search space over the lists
+    (``mural_tpu/cli/main.py:45-137``; ref run_train_raytune.py:186-282).
+    The INDEL keys are fixed: the U-Net reads only the distal window, and
+    the local columns feed the k-mer evaluation."""
+    if not args.use_ray:
+        first = lambda values: values[0]     # noqa: E731
+        lr_or_wd = first
+    else:
+        first = Choice
+        lr_or_wd = loguniform_or_choice
     config = {
         "segment_center": args.segment_center,
-        "distal_radius": args.distal_radius[0],
-        "CNN_kernel_size": args.CNN_kernel_size[0],
-        "CNN_out_channels": args.CNN_out_channels[0],
-        "batch_size": args.batch_size[0],
-        "sampled_segments": args.sampled_segments[0],
-        "learning_rate": args.learning_rate[0],
-        "optim": args.optim[0],
-        "lr_scheduler": args.lr_scheduler[0],
-        "LR_gamma": args.LR_gamma[0],
-        "weight_decay": args.weight_decay[0],
+        "distal_radius": first(args.distal_radius),
+        "CNN_kernel_size": first(args.CNN_kernel_size),
+        "CNN_out_channels": first(args.CNN_out_channels),
+        "batch_size": first(args.batch_size),
+        "sampled_segments": first(args.sampled_segments),
+        "learning_rate": lr_or_wd(args.learning_rate),
+        "optim": first(args.optim),
+        "lr_scheduler": first(args.lr_scheduler),
+        "LR_gamma": first(args.LR_gamma),
+        "weight_decay": lr_or_wd(args.weight_decay),
         "weight_decay_auto": args.weight_decay_auto,
         "restart_lr": args.restart_lr,
         "min_lr": args.min_lr,
         "transfer_learning": False,
     }
     if model_type == "snv":
-        h2 = args.local_hidden2_size[0]
+        if not args.use_ray:
+            h2 = args.local_hidden2_size[0]
+            hidden2 = h2 if h2 > 0 else args.local_hidden1_size[0] // 2
+        elif max(args.local_hidden2_size) > 0:
+            hidden2 = Choice(args.local_hidden2_size)
+        else:
+            hidden2 = SampleFrom(_half_hidden1)
         config.update({
-            "local_radius": args.local_radius[0],
-            "local_order": args.local_order[0],
-            "local_hidden1_size": args.local_hidden1_size[0],
-            "local_hidden2_size": (h2 if h2 > 0
-                                   else args.local_hidden1_size[0] // 2),
-            "emb_dropout": args.emb_dropout[0],
-            "distal_fc_dropout": args.distal_fc_dropout[0],
-            "local_dropout": args.local_dropout[0],
+            "local_radius": first(args.local_radius),
+            "local_order": first(args.local_order),
+            "local_hidden1_size": first(args.local_hidden1_size),
+            "local_hidden2_size": hidden2,
+            "emb_dropout": first(args.emb_dropout),
+            "distal_fc_dropout": first(args.distal_fc_dropout),
+            "local_dropout": first(args.local_dropout),
         })
     else:
-        # the U-Net reads only the distal window; the local columns feed
-        # the k-mer evaluation
         config.update({
             "local_radius": 6,
             "local_order": 1,
@@ -89,33 +108,29 @@ def _build_config(args, model_type: str) -> dict:
     return config
 
 
-def cmd_train(args, model_type: str) -> int:
-    from mural_tpu_torch.device import resolve_device
-    from mural_tpu_torch.train.loop import TrainOptions, check_ported
-    from mural_tpu_torch.tune.runner import ExperimentOptions, run_experiment
-    for value, flag in ((args.use_ray, "--use_ray"),
-                        (args.n_parallel > 1, "--n_parallel > 1"),
-                        (args.trial_ensemble == "auto",
-                         "--trial_ensemble auto"),
-                        (args.trial_executor == "process",
-                         "--trial_executor process"),
-                        (args.rerun_failed, "--rerun_failed")):
-        if value:
-            raise NotImplementedError(
-                f"train {flag} is not ported yet (ROADMAP.md item 8)")
+def _half_hidden1(config: dict) -> int:
+    """``local_hidden2_size`` 0 in search mode: half the sampled
+    ``local_hidden1_size``."""
+    return config["local_hidden1_size"] // 2
+
+
+def _train_opts(args, model_type: str):
+    """The trial runner's non-searchable options of train and transfer,
+    without the device."""
+    from mural_tpu_torch.train.loop import TrainOptions
     if args.sample_weights:
         print("Warning: sample_weights be dropped, the program will "
               "run with sample_weights=None!")
-    opts = TrainOptions(
+    return TrainOptions(
         train_data=_abspath(args.train_data),
         ref_genome=_abspath(args.ref_genome),
         validation_data=_abspath(args.validation_data),
         bw_paths=_abspath(args.bw_paths),
-        distal_order=args.distal_order,
+        distal_order=getattr(args, "distal_order", 1),
         seq_only=args.seq_only,
         without_bw_distal=args.without_bw_distal,
         n_class=args.n_class,
-        model_no=args.model_no,
+        model_no=getattr(args, "model_no", 0),
         epochs=args.epochs,
         valid_ratio=args.valid_ratio,
         split_seed=(args.split_seed if args.split_seed >= 0 else None),
@@ -130,14 +145,103 @@ def cmd_train(args, model_type: str) -> int:
         resident=args.resident_data,
         fused_stem=args.fused_stem,
     )
+
+
+def _experiment(args, **extra):
+    from mural_tpu_torch.tune.runner import ExperimentOptions
+    return ExperimentOptions(
+        experiment_name=args.experiment_name, n_trials=args.n_trials,
+        epochs=args.epochs, grace_period=args.grace_period,
+        asha_metric=args.ASHA_metric, use_scheduler=args.use_ray,
+        n_parallel=args.n_parallel, rerun_failed=args.rerun_failed,
+        trial_executor=args.trial_executor, **extra)
+
+
+def cmd_train(args, model_type: str) -> int:
+    from mural_tpu_torch.device import resolve_device
+    from mural_tpu_torch.train.loop import check_ported
+    from mural_tpu_torch.tune.runner import run_experiment
+    if args.trial_ensemble == "auto":
+        raise NotImplementedError("train --trial_ensemble auto is not "
+                                  "ported yet (ROADMAP.md item 8)")
+    space = _build_space(args, model_type)
+    opts = _train_opts(args, model_type)
     # fail before any trial starts: a trial's own error goes to its
     # error.txt and the run carries on
     check_ported(opts, model_type)
     opts.device = resolve_device(args.cpu_only, args.cuda_id)
-    exp = ExperimentOptions(experiment_name=args.experiment_name,
-                            n_trials=args.n_trials, epochs=args.epochs,
-                            grace_period=args.grace_period)
-    run_experiment(_build_config(args, model_type), opts, model_type, exp)
+    run_experiment(space, opts, model_type,
+                   _experiment(args, ensemble=args.trial_ensemble))
+    return 0
+
+
+def cmd_transfer(args, model_type: str) -> int:
+    """``mural_tpu/cli/main.py:219-285`` (ref run_train_TL_raytune.py:
+    52-337): the architecture comes from the checkpoint's config, the
+    learning parameters from the flags (their first values, or a search
+    space under ``--use_ray``)."""
+    from mural_tpu_torch.device import resolve_device
+    from mural_tpu_torch.train.checkpoint import load_config
+    from mural_tpu_torch.train.loop import check_ported
+    from mural_tpu_torch.tune.runner import run_experiment
+    opts = _train_opts(args, model_type)
+    opts.device = resolve_device(args.cpu_only, args.cuda_id)
+    if not args.train_all:
+        print(f"Warning: --train_all is required for {model_type} "
+              "transfer learning! Setting it to True.")
+        args.train_all = True
+
+    saved = load_config(_abspath(args.model_config_path))
+    config = dict(saved)
+    config["transfer_learning"] = True
+    config["train_all"] = args.train_all
+    config["init_fc_with_pretrained"] = args.init_fc_with_pretrained
+    if args.use_ray:
+        # choice over batch_size/optim/lr_scheduler/LR_gamma, log-uniform
+        # over learning_rate/weight_decay (run_train_TL_raytune.py:
+        # 276-303); the architecture stays the checkpoint's
+        config["batch_size"] = Choice(args.batch_size)
+        config["optim"] = Choice(args.optim)
+        config["learning_rate"] = loguniform_or_choice(args.learning_rate)
+        config["lr_scheduler"] = Choice(args.lr_scheduler)
+        config["LR_gamma"] = Choice(args.LR_gamma)
+        config["weight_decay"] = loguniform_or_choice(args.weight_decay)
+    else:
+        config["batch_size"] = args.batch_size[0]
+        config["optim"] = args.optim[0]
+        config["learning_rate"] = args.learning_rate[0]
+        config["lr_scheduler"] = args.lr_scheduler[0]
+        config["LR_gamma"] = args.LR_gamma[0]
+        config["weight_decay"] = args.weight_decay[0]
+    config["weight_decay_auto"] = args.weight_decay_auto
+    config["restart_lr"] = args.restart_lr
+    config["min_lr"] = args.min_lr
+    if args.segment_center:
+        config["segment_center"] = args.segment_center
+    if args.sampled_segments:
+        # the list flag of train; transfer pins its first value
+        config["sampled_segments"] = args.sampled_segments[0]
+    config.setdefault("sampled_segments", 10)
+
+    opts = dataclasses.replace(
+        opts, model_no=saved.get("model_no", 0),
+        model_path=_abspath(args.model_path), train_all=args.train_all,
+        init_fc_with_pretrained=args.init_fc_with_pretrained,
+        n_class=saved.get("n_class", args.n_class))
+    check_ported(opts, model_type)
+    run_experiment(config, opts, model_type, _experiment(args))
+    return 0
+
+
+def cmd_convert(args, model_type: str) -> int:
+    """Write a reference or mural_tpu checkpoint directory as this
+    package's triple (``mural_tpu/cli/main.py:394-402``)."""
+    from mural_tpu_torch.device import resolve_device
+    from mural_tpu_torch.utils.zoo import convert_checkpoint
+    device = resolve_device(args.cpu_only, args.cuda_id)
+    convert_checkpoint(_abspath(args.checkpoint_dir),
+                       _abspath(args.out_dir), model_type=model_type,
+                       device=device)
     return 0
 
 
@@ -252,7 +356,8 @@ def main(model_type: str, argv=None) -> int:
     return _DISPATCH[args.func](args, model_type)
 
 
-_DISPATCH = {"train": cmd_train, "predict": cmd_predict,
-             "evaluate": cmd_evaluate, "scale": cmd_scale,
+_DISPATCH = {"train": cmd_train, "transfer": cmd_transfer,
+             "predict": cmd_predict, "evaluate": cmd_evaluate,
+             "scale": cmd_scale,
              "calc_scaling_factor": cmd_calc_scaling_factor,
-             "get_best_model": cmd_get_best_model}
+             "get_best_model": cmd_get_best_model, "convert": cmd_convert}

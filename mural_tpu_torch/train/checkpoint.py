@@ -20,10 +20,14 @@ from mural_tpu_torch.utils.convert import state_dict_from_jax
 
 
 def clean_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Drop the reference's duplicate ``*.layer.N.*`` ResBlock keys and
-    the BN ``num_batches_tracked`` counters."""
+    """Drop the reference's duplicate ``*.layer.N.*`` ResBlock keys, the
+    BN ``num_batches_tracked`` counters and zero-size tensors: a
+    reference SNV model without continuous features still carries a
+    ``first_bn_layer`` of ``BatchNorm1d(0)``, which the port leaves
+    out."""
     return {k: v for k, v in sd.items()
-            if ".layer." not in k and not k.endswith("num_batches_tracked")}
+            if ".layer." not in k and not k.endswith("num_batches_tracked")
+            and v.numel() > 0}
 
 
 def save_checkpoint(save_path: str, model: torch.nn.Module, config: Dict,

@@ -5,7 +5,9 @@ track list (``--bw_paths``) -> dataset build (with the tracks' means as
 continuous features and, unless ``without_bw_distal`` or ``seq_only``,
 their per-base values as distal channels) -> segment-level
 train/validation split (``split_seed``) -> emb_dims -> model build
-(SNVNet0-3 or the INDEL U-Net) + the reference init from ``rng_seed`` ->
+(SNVNet0-3 or the INDEL U-Net) + the reference init from ``rng_seed``,
+or for a transfer the checkpoint's weights with the final FC layers
+re-initialised and, without ``train_all``, the rest frozen ->
 weight_decay_auto -> optimizer and LR schedule -> epochs of train steps
 on host-built batches -> per epoch: validation, FullDirichlet fit,
 k-mer and regional evaluation (whose regional score is the metrics'
@@ -25,6 +27,7 @@ the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import sys
 import time
@@ -43,7 +46,7 @@ from mural_tpu_torch.genome.fasta import Genome
 from mural_tpu_torch.genome.tracks import TrackSet
 from mural_tpu_torch.models.init import init_weights
 from mural_tpu_torch.models.registry import build_model, check_model_no
-from mural_tpu_torch.train.checkpoint import save_checkpoint
+from mural_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from mural_tpu_torch.train.early_stopping import EarlyStopping
 from mural_tpu_torch.train.optim import (LRSchedule, ReduceLROnPlateau,
                                          auto_weight_decay, build_optimizer)
@@ -77,6 +80,10 @@ class TrainOptions:
     grace_period: int = 5
     trial_dir: str = "."
     trial_training_log: Optional[str] = None
+    # transfer learning
+    model_path: Optional[str] = None
+    train_all: bool = True
+    init_fc_with_pretrained: bool = False
     rng_seed: int = 0
     # torch device; None -> the CUDA card (RuntimeError without one)
     device: Optional[object] = None
@@ -128,6 +135,60 @@ def init_model(model: torch.nn.Module, ds: SiteDataset,
     return init_weights(model, torch.Generator().manual_seed(rng_seed))
 
 
+def seed_device(device: torch.device, seed: int) -> None:
+    """Seed the generator that draws dropout masks on ``device``, and no
+    other: concurrent trials on other cards keep their streams.  The CPU
+    generator for a CPU trial; ``cuda:idx``'s own for a CUDA trial."""
+    if device.type == "cuda":
+        torch.cuda.init()
+        idx = (device.index if device.index is not None
+               else torch.cuda.current_device())
+        torch.cuda.default_generators[idx].manual_seed(seed)
+    else:
+        torch.default_generator.manual_seed(seed)
+
+
+# the final FC layers of a transfer, the JAX package's ``local_fc``,
+# ``towers/distal_fc1/fc`` and ``towers/distal_fc2/fc`` (ref
+# training.py:301-321), in the order its sorted-key walk draws them;
+# SNVNet0 and the U-Net have none
+FINAL_FCS = ("local_fc.0", "distal_fc1.2", "distal_fc2.2")
+
+
+def transfer_trainable(model: torch.nn.Module, model_type: str,
+                       train_all: bool) -> List[torch.nn.Parameter]:
+    """The parameters a transfer trains (training.py:301-314): all with
+    ``train_all``, else the final FC layers' only.  The others keep
+    ``requires_grad``: their gradients count in the clip norm, as in the
+    JAX step, which masks the optimizer's update instead."""
+    if train_all:
+        return list(model.parameters())
+    if model_type == "indel":
+        raise ValueError(
+            "--train_all is required for INDEL transfer learning; the "
+            "INDEL model needs full fine-tuning")
+    return [p for name, p in model.named_parameters()
+            if name.rsplit(".", 1)[0] in FINAL_FCS]
+
+
+@torch.no_grad()
+def reinit_final_fcs(model: torch.nn.Module, rng_seed: int) -> None:
+    """Re-initialise the final FC layers (training.py:316-321) with the
+    JAX package's draws: ``normal(0, sqrt(2 / fan_in))`` of the Flax
+    ``(fan_in, fan_out)`` kernel from ``default_rng(rng_seed + 12345)``,
+    transposed to torch's ``(out, in)``; zero biases."""
+    rng = np.random.default_rng(rng_seed + 12345)
+    modules = dict(model.named_modules())
+    for name in FINAL_FCS:
+        if name in modules:
+            fc = modules[name]
+            fan_in = fc.weight.shape[1]
+            fc.weight.copy_(torch.from_numpy(rng.normal(
+                0, math.sqrt(2.0 / fan_in),
+                size=(fan_in, fc.weight.shape[0])).T))
+            fc.bias.zero_()
+
+
 def _check_classes(ds: SiteDataset, n_class: int, what: str) -> None:
     """Fail fast on labels the run cannot fit: a class >= n_class, or (for
     validation) a class never observed, which the Dirichlet calibration
@@ -170,9 +231,9 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
     # convolutions would keep only ~3 decimal digits
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    # dropout draws from torch's global generator (the JAX package folds
+    # dropout draws from the device's generator (the JAX package folds
     # its dropout key per step: the two streams differ)
-    torch.manual_seed(opts.rng_seed)
+    seed_device(device, opts.rng_seed)
     tracks = None
     if not opts.bw_paths:
         printer("NOTE: no bigWig files provided.")
@@ -222,10 +283,19 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
     config["seq_only"] = opts.seq_only
     config["restart_lr"] = config.get("restart_lr", 1e-4)
     config["min_lr"] = config.get("min_lr", 1e-6)
-    config["emb_dims"] = [(x, min(16, int(x ** 0.25)))
-                          for x in ds.cat_dims]
+    transfer = bool(config.get("transfer_learning"))
+    if not transfer:
+        # a transfer keeps the checkpoint's
+        config["emb_dims"] = [(x, min(16, int(x ** 0.25)))
+                              for x in ds.cat_dims]
     n_cont = ds.n_cont
-    config["n_cont"] = n_cont    # predict rehydrates from this
+    if (transfer and config.get("n_cont") is not None
+            and config["n_cont"] != n_cont):
+        raise ValueError(
+            f"pretrained checkpoint used n_cont={config['n_cont']} track "
+            f"feature(s) but this run provides {n_cont} -- pass the same "
+            "--bw_paths track list used for pretraining")
+    config["n_cont"] = n_cont    # predict and transfer rehydrate from this
     in_channels = 4 ** opts.distal_order + (n_cont if bw_distal else 0)
     common = {"emb_dims": config["emb_dims"], "n_cont": n_cont,
               "n_class": opts.n_class, "distal_order": opts.distal_order,
@@ -241,7 +311,22 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
     if use_fused_stem:
         printer("fused train stem: on (one-hot+BN+conv+pool as the CUDA "
                 "kernels K2/K3)")
-    model = init_model(model, ds, opts.rng_seed).to(device)
+    model = init_model(model, ds, opts.rng_seed)
+    trainable = list(model.parameters())
+    if transfer:
+        config.setdefault("train_all", opts.train_all)
+        config.setdefault("init_fc_with_pretrained",
+                          opts.init_fc_with_pretrained)
+        load_checkpoint(opts.model_path, model)
+        trainable = transfer_trainable(model, model_type,
+                                       config.get("train_all", True))
+        if not config.get("init_fc_with_pretrained", False):
+            if model_type == "indel":
+                raise ValueError(
+                    "--init_fc_with_pretrained is required for INDEL "
+                    "transfer learning")
+            reinit_final_fcs(model, opts.rng_seed)
+    model = model.to(device)
     total_params = count_parameters(model, printer=printer)
 
     # --- optimizer / schedule -----------------------------------------
@@ -253,9 +338,11 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
         config.get("lr_scheduler", "StepLR"), config["learning_rate"],
         config.get("LR_gamma", 0.9), config["batch_size"],
         max(train_size, 1), config["restart_lr"], config["min_lr"])
+    # a frozen parameter gets no optimizer update, Adam's or weight
+    # decay's
     state = TrainState(model, build_optimizer(
-        config.get("optim", "Adam"), model.parameters(),
-        config["weight_decay"]), schedule)
+        config.get("optim", "Adam"), trainable, config["weight_decay"]),
+        schedule)
 
     es = EarlyStopping(patience=opts.grace_period, verbose=True,
                        trace_func=printer)

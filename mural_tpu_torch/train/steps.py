@@ -68,7 +68,9 @@ def train_step(state: TrainState, y: torch.Tensor, cat: torch.Tensor,
     model.train()
     lr = state.lr()
     loss = masked_ce_sum(model(cat, distal, cont), y, mask)
-    state.optimizer.zero_grad(set_to_none=True)
+    # every parameter's gradient: a transfer's frozen ones count in the
+    # clip norm although the optimizer holds only the trainable ones
+    model.zero_grad(set_to_none=True)
     loss.backward()
     torch.nn.utils.clip_grad_norm_(model.parameters(), GRAD_CLIP)
     for group in state.optimizer.param_groups:

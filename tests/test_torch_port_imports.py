@@ -29,6 +29,10 @@ TRACKS_SLICE = [f"mural_tpu_torch.{m}" for m in (
     "genome.tracks", "data.dataset", "data.batcher", "models.snv",
     "models.registry", "models.indel", "utils.convert", "train.steps",
     "train.loop", "predict.pipeline", "cli.main", "cli.commands")]
+# transfer, convert and the trial search
+SEARCH_SLICE = [f"mural_tpu_torch.{m}" for m in (
+    "tune.space", "tune.asha", "tune.runner", "utils.zoo", "utils.params",
+    "train.loop", "train.checkpoint", "cli.main", "cli.commands")]
 
 
 def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
@@ -71,11 +75,11 @@ def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
     lines = dict(line.split(" ", 1) for line in res.stdout.splitlines()
                  if line.startswith(("MODULES", "BANNED", "NAMES")))
     n_modules, cal_module = lines["MODULES"].split()
-    assert int(n_modules) >= 52
-    # the training, evaluation, INDEL and track slices' modules are among
-    # those imported
-    assert set(TRAIN_SLICE + EVAL_SLICE + INDEL_SLICE + TRACKS_SLICE) <= set(
-        lines["NAMES"].split(","))
+    assert int(n_modules) >= 55
+    # the training, evaluation, INDEL, track and search slices' modules
+    # are among those imported
+    assert set(TRAIN_SLICE + EVAL_SLICE + INDEL_SLICE + TRACKS_SLICE
+               + SEARCH_SLICE) <= set(lines["NAMES"].split(","))
     assert cal_module == "mural_tpu_torch.calibrate.dirichlet"
     assert lines["BANNED"] == "[]"
     np.testing.assert_allclose(np.load(tmp_path / "out.npy"),

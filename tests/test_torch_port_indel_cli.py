@@ -215,8 +215,8 @@ def _text(path):
 
 
 def test_entry_points_need_a_card_or_raise(data, monkeypatch):
-    """Without --cpu_only and without a card, train and predict raise;
-    transfer, convert and predict_genome are not ported."""
+    """Without --cpu_only and without a card, train, predict, transfer
+    and convert raise; predict_genome is not ported."""
     import torch
     base, fasta, bed = data
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -226,11 +226,13 @@ def test_entry_points_need_a_card_or_raise(data, monkeypatch):
     argv.remove("--cpu_only")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_cli(argv)
-    for command, item in (("transfer", 7), ("convert", 7),
-                          ("predict_genome", 9)):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md item {item}"):
-            port_cli([command])
+    for argv in (["transfer", "--ref_genome", fasta, "--train_data", bed,
+                  "--model_path", "m", "--model_config_path", "c"],
+                 ["convert", "--checkpoint_dir", "d", "--out_dir", "o"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_cli(argv)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 9"):
+        port_cli(["predict_genome"])
     with pytest.raises(ValueError, match="model_no for indel"):
         port_cli(["train", "--cpu_only", "--ref_genome", fasta,
                   "--train_data", bed, "--model_no", "2"])
@@ -265,9 +267,10 @@ def test_train_config_matches_jax(extra):
     equals the JAX package's for the same mural_indel train argv."""
     from mural_tpu.cli.main import _build_space
     from mural_tpu.cli.main import create_parser as j_create_parser
-    from mural_tpu_torch.cli.main import _build_config, create_parser
+    from mural_tpu_torch.cli.main import _build_space as _port_space
+    from mural_tpu_torch.cli.main import create_parser
     argv = ["train", "--ref_genome", "g", "--train_data", "b", *extra]
-    ours = _build_config(create_parser("indel").parse_args(argv), "indel")
+    ours = _port_space(create_parser("indel").parse_args(argv), "indel")
     theirs = _build_space(j_create_parser("indel").parse_args(argv), "indel")
     assert ours == theirs
     assert ours["local_radius"] == 6 and ours["down_list"]

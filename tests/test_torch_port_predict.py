@@ -177,5 +177,7 @@ def test_predict_without_cpu_request_needs_cuda(triple, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_cli(["train", "--ref_genome", triple["fasta"],
                   "--train_data", triple["bed"]])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 7"):
-        port_cli(["transfer"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_cli(["transfer", "--ref_genome", triple["fasta"],
+                  "--train_data", triple["bed"], "--model_path",
+                  triple["model"], "--model_config_path", triple["config"]])

@@ -1,7 +1,8 @@
 """The port's training slice (``mural_snv train``) against the JAX
 package on the CPU, the parts outside the train step: LR schedules and
 weight decay, the segment split, the calibrator fits, the train flags
-that raise and the options that raise as in the JAX package.  The train step is in ``test_torch_port_train_step.py``
+that raise or reach the trial runner and the options that raise as in
+the JAX package.  The train step is in ``test_torch_port_train_step.py``
 and one epoch of ``train_trial`` with the CLI drive in
 ``test_torch_port_train_trial.py``; both take ``CONFIG`` from here."""
 import jax.numpy as jnp
@@ -119,8 +120,7 @@ def test_calibrate_prob_matches_jax(name):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--use_ray"], 8), (["--n_parallel", "2"], 8),
-    (["--trial_executor", "process"], 8), (["--bf16"], 10),
+    (["--bf16"], 10),
     (["--steps_per_dispatch", "8"], 10), (["--resident_data", "on"], 10),
     (["--with_h5"], 4), (["--dp_devices", "2"], 10),
     (["--profile_dir", "prof"], 10), (["--trial_ensemble", "auto"], 8)])
@@ -128,6 +128,37 @@ def test_cli_train_flags_not_ported_raise(flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         port_cli(["train", "--ref_genome", "seq.fa", "--train_data",
                   "sites.bed", *flag])
+
+
+@pytest.mark.parametrize("flag,field,value", [
+    (["--use_ray"], "use_scheduler", True),
+    (["--n_parallel", "2"], "n_parallel", 2),
+    (["--trial_executor", "process"], "trial_executor", "process"),
+    (["--rerun_failed"], "rerun_failed", True)])
+@pytest.mark.parametrize("cpu_only", [True, False], ids=["cpu", "no_card"])
+def test_cli_train_search_flags_reach_the_runner(monkeypatch, flag, field,
+                                                 value, cpu_only):
+    """The trial-search flags reach the experiment runner on a CPU train;
+    without ``--cpu_only`` and without a card, train raises "no CUDA
+    device" before any trial."""
+    import torch
+
+    import mural_tpu_torch.tune.runner as runner
+    got = {}
+    monkeypatch.setattr(runner, "run_experiment",
+                        lambda space, opts, mt, exp: got.update(
+                            exp=exp, opts=opts))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["train", "--ref_genome", "seq.fa", "--train_data", "sites.bed",
+            *flag] + (["--cpu_only"] if cpu_only else [])
+    if not cpu_only:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_cli(argv)
+        assert not got
+        return
+    assert port_cli(argv) == 0
+    assert getattr(got["exp"], field) == value
+    assert str(got["opts"].device) == "cpu"
 
 
 @pytest.mark.parametrize("model_no", [0, 1, 2, 3])
