@@ -122,8 +122,24 @@ Phases (any failure raises and the script exits non-zero):
     (only that trial runs again); ``--trial_executor process --n_trials
     2 --epochs 1 --fused_stem on`` (both children train on the card with
     the fused stem, no ``error.txt``; each child's start-up seconds);
-12. a JSON line of the kernels (with ``launches_phase11``) and a timing
-    line.
+12. genome-wide predict, at the CLI defaults: ``mural_snv predict_genome
+    --chroms chr2 --focal_base A --pred_time_view`` on the 1 Mb
+    chromosome with phase 1's SNVNet2 triple, ``--fused_inference
+    --n_workers 0``, ``--fused_inference --n_workers 2`` and unfused with
+    the automatic worker count (rows = the A and T codes of chr2, the
+    schema, ``mut_type`` 0, each row's strand matching its base, sums
+    within 5e-3, the inline and worker outputs byte-equal after
+    decompression, fused against unfused within ``%.4g``, K1 twice per
+    batch fused and 0 times unfused; sites/s and the phase table of
+    each); ``predict --fused_inference`` of a BED of 20,000 of its sites
+    (both chromosome ends and random) equal to their genome-wide rows
+    within ``%.4g`` (the card's gather against the host's); ``mural_indel
+    predict_genome --pred_batch_size 1024`` with phase 1's INDEL triple
+    on a seeded 200,000-base chromosome of its own (200,000 rows of
+    ``prob0..7`` summing to 1, K1-K3 0 times, sites/s) and ``predict`` of
+    a BED of 5,000 of its sites within ``%.4g``;
+13. a JSON line of the kernels (with ``launches_phase11`` and
+    ``launches_phase12``) and a timing line.
 
 The last line of standard output is the device record
 ``{"ok": true, "device": {...}}``.  ``--only_kernels`` runs the setup
@@ -249,14 +265,19 @@ def device_ms(fn, iters=20, warmup=3, what="") -> float:
 
 
 def build_kernels():
-    """Build every kernel library of the port, one nvcc per source, all
-    started together; returns (seconds, {library: nvcc output})."""
+    """Build every kernel library of the port, one nvcc per source, and
+    the native host library (g++), all started together; returns
+    (seconds, {kernel library: nvcc output})."""
+    from mural_tpu_torch import native
     from mural_tpu_torch.ops import fused_code_conv as fcc
     from mural_tpu_torch.ops import fused_train_stem as fts
     libs = (fcc.LIBRARY, fts.LIBRARY)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs)) as ex:
-        list(ex.map(lambda lib: lib.load(), libs))
+    with ThreadPoolExecutor(len(libs) + 1) as ex:
+        builds = [ex.submit(lib.load) for lib in libs]
+        builds.append(ex.submit(native.load))
+        for build in builds:
+            build.result()
     return time.perf_counter() - t0, {lib.name: lib.build_log.strip()
                                       for lib in libs}
 
@@ -2230,15 +2251,248 @@ def phase_transfer_search(work, fasta, bed, train_bed, indel_train_bed,
         "search": phase_search(work, fasta, search_bed, cuda_id, seed)}
 
 
+# --- phase 12: genome-wide predict ----------------------------------------
+
+GW_CHROM = "chr2"       # the synthetic genome's 1 Mb chromosome
+GW_BED_SITES = 20_000   # genome-wide sites re-predicted from a BED
+GW_EDGE_SITES = 100     # of which at each end of the chromosome
+INDEL_GENOME = 200_000  # bases of the INDEL phase's own chromosome
+INDEL_BED_SITES = 5_000
+TOL_PRINTED = 1.1e-3    # one unit in the 4th digit of %.4g, relative
+
+
+def read_genome_tsv(path):
+    """(decompressed bytes, header, columns) of a prediction TSV; the
+    columns as numpy arrays (start int64, strand and mut_type strings,
+    probs float64 (n, n_class))."""
+    with gzip.open(path, "rb") as fh:
+        raw = fh.read()
+    lines = raw.decode().split("\n")
+    header = lines[0].split("\t")
+    rows = [line.split("\t") for line in lines[1:] if line]
+    cols = list(zip(*rows)) or [()] * len(header)
+    return raw, header, {
+        "chrom": np.asarray(cols[0], dtype=str),
+        "start": np.asarray(cols[1], dtype=np.int64),
+        "strand": np.asarray(cols[3], dtype=str),
+        "mut_type": np.asarray(cols[4], dtype=str),
+        "probs": np.asarray(cols[5:], dtype=np.float64).T}
+
+
+def within_printed(a, b) -> bool:
+    """Every value of ``a`` within ``%.4g``'s rounding of ``b``'s."""
+    return bool(a.shape == b.shape and np.all(
+        np.abs(a - b) <= TOL_PRINTED * np.maximum(np.abs(a), np.abs(b))))
+
+
+_GW_RATE = re.compile(r"genome-wide predict: ([\d,]+) sites in ([\d.]+)s = "
+                      r"([\d,]+) sites/s \((\d+) postprocess workers")
+_GW_PHASE = re.compile(r"^  (\S.*?)\s+([\d.]+)s$")
+
+
+def cli_genome(cli, argv, out):
+    """One ``predict_genome`` through the CLI with K1-K3 counted from 0
+    just before it; returns its run record with the printed phase table,
+    the printed rate and the TSV."""
+    import torch
+    argv = ["predict_genome", *argv, "--pred_file", out, "--pred_time_view"]
+    torch.cuda.synchronize()
+    (rc, seconds, lines), launches = counted(run_cli, cli, argv)
+    torch.cuda.synchronize()
+    rate = next((m for m in map(_GW_RATE.search, lines) if m), None)
+    start = next((i for i, line in enumerate(lines)
+                  if line == "predict_genome phase timing:"), len(lines))
+    phases = {m[1]: float(m[2]) for m in map(_GW_PHASE.match,
+                                              lines[start + 1:]) if m}
+    return {"rc": rc, "seconds": seconds, "launches": launches,
+            "phases": phases, "tsv": read_genome_tsv(out),
+            "printed_sites": rate and int(rate[1].replace(",", "")),
+            "printed_sites_per_s": rate and int(rate[3].replace(",", "")),
+            "workers": rate and int(rate[4])}
+
+
+def bed_of(path: Path, chrom: str, starts, strands):
+    path.write_text("".join(f"{chrom}\t{p}\t{p + 1}\t.\t0\t{s}\n"
+                            for p, s in zip(starts, strands)))
+    return str(path)
+
+
+def phase_genome_snv(work, fasta, model_path, cuda_id, rng):
+    """``mural_snv predict_genome`` on the 1 Mb chromosome: fused inline,
+    fused with two farm workers, unfused with the automatic worker count;
+    then the card's gather against the host's through a BED predict of
+    some of its sites."""
+    from mural_tpu_torch.cli.mural_snv import main as cli
+    from mural_tpu_torch.genome.fasta import Genome
+    common = ["--ref_genome", fasta, "--model_path", model_path,
+              "--model_config_path", model_path + ".config.pkl",
+              "--calibrator_path", model_path + ".fdiri_cal.pkl",
+              "--chroms", GW_CHROM, "--focal_base", "A",
+              "--cuda_id", str(cuda_id)]
+    runs = {}
+    for name, extra in (
+            ("fused_inline", ["--fused_inference", "--n_workers", "0"]),
+            ("fused_workers", ["--fused_inference", "--n_workers", "2"]),
+            ("unfused_auto", [])):
+        runs[name] = run = cli_genome(cli, common + extra,
+                                      str(work / f"gw_{name}.tsv.gz"))
+        run["sites_per_s"] = len(run["tsv"][2]["start"]) / run["seconds"]
+        log(f"predict_genome {name}: {run['seconds']:.3f} s, "
+            f"{run['sites_per_s']:.1f} sites/s ({run['workers']} farm "
+            f"workers), K1 launches {run['launches'][0]}; phases "
+            + json.dumps(run["phases"]))
+
+    codes = Genome.from_fasta(fasta)[GW_CHROM]
+    n_sites = int(np.sum((codes == 0) | (codes == 3)))
+    n_batches = math.ceil(n_sites / BATCH)
+    inline, workers, unfused = (runs[k]["tsv"] for k in (
+        "fused_inline", "fused_workers", "unfused_auto"))
+    cols = inline[2]
+    probs = cols["probs"]
+    check_all("predict_genome (SNV)", {
+        "exit codes 0": all(r["rc"] == 0 for r in runs.values()),
+        f"{n_sites} rows, the A and T codes of {GW_CHROM}": all(
+            len(t[2]["start"]) == n_sites for t in (inline, workers,
+                                                    unfused))
+        and all(r["printed_sites"] == n_sites for r in runs.values()),
+        "TSV schema": all(t[1] == TSV_HEADER for t in (inline, workers,
+                                                       unfused)),
+        "mut_type 0 in every row": bool(np.all(cols["mut_type"] == "0")),
+        "positions ascending": bool(np.all(np.diff(cols["start"]) > 0)),
+        "every row's strand matches its base": bool(np.array_equal(
+            codes[cols["start"]], np.where(cols["strand"] == "+", 0, 3))),
+        "probabilities finite and summing to 1 within 5e-3": bool(
+            np.isfinite(probs).all()
+            and np.abs(probs.sum(1) - 1).max() <= 5e-3),
+        "2 farm workers write the inline bytes": inline[0] == workers[0],
+        "fused and unfused rows equal": bool(
+            np.array_equal(cols["start"], unfused[2]["start"])
+            and np.array_equal(cols["strand"], unfused[2]["strand"])),
+        "fused and unfused agree within %.4g": within_printed(
+            probs, unfused[2]["probs"]),
+        f"K1 launched 2 x {n_batches} batches in each fused run": all(
+            runs[k]["launches"] == (2 * n_batches, 0, 0)
+            for k in ("fused_inline", "fused_workers")),
+        "no K1 launch unfused": runs["unfused_auto"]["launches"] == (0, 0,
+                                                                     0),
+    })
+
+    # the card's gather against the host's: a BED of sites at both ends
+    # of the chromosome and at random, predicted with the host gather
+    n = len(cols["start"])
+    pick = np.sort(np.concatenate([
+        np.arange(GW_EDGE_SITES), np.arange(n - GW_EDGE_SITES, n),
+        rng.choice(np.arange(GW_EDGE_SITES, n - GW_EDGE_SITES),
+                   GW_BED_SITES - 2 * GW_EDGE_SITES, replace=False)]))
+    bed = bed_of(work / "gw_sites.bed", GW_CHROM, cols["start"][pick],
+                 cols["strand"][pick])
+    pred = cli_predict(cli, [
+        "--ref_genome", fasta, "--test_data", bed,
+        "--model_path", model_path,
+        "--model_config_path", model_path + ".config.pkl",
+        "--calibrator_path", model_path + ".fdiri_cal.pkl",
+        "--pred_batch_size", str(BATCH), "--cuda_id", str(cuda_id),
+        "--fused_inference"], str(work / "gw_bed_pred.tsv.gz"))
+    _, keys, bed_probs = pred["tsv"]
+    check_all("predict_genome against predict on a BED of its sites", {
+        "exit code 0": pred["rc"] == 0,
+        f"{len(pick)} rows, the same sites": [int(k[1]) for k in keys]
+        == cols["start"][pick].tolist()
+        and [k[3] for k in keys] == cols["strand"][pick].tolist(),
+        "probabilities agree within %.4g": within_printed(
+            bed_probs, probs[pick]),
+    })
+    return runs, {"sites": len(pick), "seconds": pred["seconds"],
+                  "launches": pred["launches"]}, n_sites
+
+
+def write_indel_genome(work: Path, rng: np.random.Generator):
+    """The INDEL phase's own one-chromosome FASTA (``INDEL_GENOME``
+    bases, 0.1% N), so the other phases' data do not change."""
+    from mural_tpu_torch.genome.fasta import decode_sequence
+    codes = rng.integers(0, 4, size=INDEL_GENOME).astype(np.uint8)
+    codes[rng.integers(0, INDEL_GENOME, size=INDEL_GENOME // 1000)] = 14
+    path = work / "indel_genome.fa"
+    path.write_text(f">chrI\n{decode_sequence(codes)}\n")
+    return str(path)
+
+
+def phase_genome_indel(work, indel_path, cuda_id, rng):
+    """``mural_indel predict_genome --pred_batch_size 1024`` (every
+    position, '+') on its own chromosome, and ``predict`` of a BED of some
+    of its sites."""
+    from mural_tpu_torch.cli.mural_indel import main as cli
+    fasta = write_indel_genome(work, rng)
+    triple = ["--model_path", indel_path,
+              "--model_config_path", indel_path + ".config.pkl",
+              "--calibrator_path", indel_path + ".fdiri_cal.pkl",
+              "--pred_batch_size", str(INDEL_PRED_BATCH),
+              "--cuda_id", str(cuda_id)]
+    run = cli_genome(cli, ["--ref_genome", fasta, *triple],
+                     str(work / "gw_indel.tsv.gz"))
+    run["sites_per_s"] = len(run["tsv"][2]["start"]) / run["seconds"]
+    log(f"predict_genome INDEL: {run['seconds']:.3f} s, "
+        f"{run['sites_per_s']:.1f} sites/s ({run['workers']} farm "
+        f"workers); phases " + json.dumps(run["phases"]))
+    _, header, cols = run["tsv"]
+    probs = cols["probs"]
+    pick = np.sort(rng.choice(INDEL_GENOME, INDEL_BED_SITES, replace=False))
+    bed = bed_of(work / "gw_indel.bed", "chrI", pick, ["+"] * len(pick))
+    pred = cli_predict(cli, ["--ref_genome", fasta, "--test_data", bed,
+                             *triple], str(work / "gw_indel_bed.tsv.gz"))
+    _, keys, bed_probs = pred["tsv"]
+    check_all("predict_genome (INDEL)", {
+        "exit codes 0": run["rc"] == 0 and pred["rc"] == 0,
+        "TSV schema with prob0..prob7": header == INDEL_TSV_HEADER,
+        f"{INDEL_GENOME} rows, every position on '+'": bool(
+            np.array_equal(cols["start"], np.arange(INDEL_GENOME))
+            and np.all(cols["strand"] == "+")),
+        # Poisson calibration (always on for INDEL) keeps the sum at 1;
+        # each printed value is within 5e-4 of itself
+        "probabilities finite and summing to 1 within %.4g": bool(
+            np.isfinite(probs).all()
+            and np.all(np.abs(probs.sum(1) - 1)
+                       <= 5e-4 * np.abs(probs).sum(1) + 1e-6)),
+        "K1, K2 and K3 launched 0 times": run["launches"] == (0, 0, 0),
+        f"predict of a BED of {INDEL_BED_SITES} of its sites agrees "
+        "within %.4g": [int(k[1]) for k in keys] == pick.tolist()
+        and within_printed(bed_probs, probs[pick]),
+    })
+    return run
+
+
+def phase_genome_wide(work, fasta, model_path, indel_path, dev, seed):
+    """Phase 12: genome-wide predict, SNV and INDEL."""
+    rng = np.random.default_rng(seed + 12)
+    cuda_id = dev.index or 0
+    snv, bed, n_sites = phase_genome_snv(work, fasta, model_path, cuda_id,
+                                         rng)
+    indel = phase_genome_indel(work, indel_path, cuda_id, rng)
+
+    def record(run, sites):
+        return {"sites": sites, "seconds": run["seconds"],
+                "sites_per_s": run["sites_per_s"],
+                "printed_sites_per_s": run["printed_sites_per_s"],
+                "workers": run["workers"], "phases": run["phases"],
+                "k1_launches": run["launches"][0]}
+
+    out = {name: record(run, n_sites) for name, run in snv.items()}
+    out["indel"] = dict(record(indel, INDEL_GENOME),
+                        k1_k2_k3_launches=indel["launches"])
+    out["bed_check"] = dict(bed, k1_launches=bed.pop("launches"))
+    return out
+
+
 def kernel_records(k1, k23, k1_launches, train_on, family=None,
-                   later=None):
+                   later=None, genome=None):
     """The kernels' JSON records from phases 2-3; ``launches`` come from
     the main path's runs (None when it did not run): K1 from phase 6's
     fused predict, K2/K3 from phase 7's fused train; ``launches_phase10``
     from phase 10's runs (``family``: K1 on its predicts, K2/K3 on each
     train run); ``launches_phase11`` from phase 11's runs in this process
     (``later``: K1 on the transferred predict, K2/K3 on the SNV transfer
-    and the ASHA search; all three on the INDEL transfer)."""
+    and the ASHA search; all three on the INDEL transfer);
+    ``launches_phase12``: K1 on each of phase 12's runs (``genome``)."""
     p11 = None
     if later is not None:
         tr, ind = later["transfer"], later["indel_transfer"]["launches"]
@@ -2265,6 +2519,8 @@ def kernel_records(k1, k23, k1_launches, train_on, family=None,
         "at_b256": k1["at_b256"],
         "launches_phase10": family and family["k1_launches"],
         "launches_phase11": p11 and p11[0],
+        "launches_phase12": genome and {
+            name: run["k1_launches"] for name, run in genome.items()},
     }, {
         "name": "code_conv_pool_fwd", "route": "cuda",
         "source": "mural_tpu_torch/ops/csrc/code_conv_pool.cu",
@@ -2391,11 +2647,14 @@ def main(argv=None) -> int:
     later = timed("transfer_search", phase_transfer_search, work, fasta,
                   bed, train_bed, indel_beds[1], train_on.pop("best_model"),
                   indel["cli"].pop("best_model"), dev, args.seed)
+    # 12. genome-wide predict (K1 on the fused SNV runs only)
+    genome = timed("genome_wide", phase_genome_wide, work, fasta,
+                   model_path, indel_path, dev, args.seed)
     shutil.rmtree(work, ignore_errors=True)
 
-    # 12. results
+    # 13. results
     log(json.dumps({"kernels": kernel_records(
-        k1, k23, fused["launches"], train_on, family, later)}))
+        k1, k23, fused["launches"], train_on, family, later, genome)}))
     log(json.dumps({
         "card": card, "build_s": t_build,
         "model_max_abs_err": model_err, **fwd_ms,
@@ -2414,6 +2673,7 @@ def main(argv=None) -> int:
         "indel": indel,
         "snv_family": family,
         "transfer_search": later,
+        "genome_wide": genome,
         "n_sites": args.n_sites, "n_train": args.n_train,
         "n_indel_sites": INDEL_SITES,
         "n_indel_train": INDEL_TRAIN, "batch": BATCH,

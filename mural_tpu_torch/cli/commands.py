@@ -373,6 +373,62 @@ def add_predict_parser(subparsers, model_type: str):
     return p
 
 
+def add_predict_genome_parser(subparsers, model_type: str):
+    p = subparsers.add_parser(
+        "predict_genome",
+        help="Genome-wide rate map without a BED: predicts every "
+             "focal-base position, streaming output",
+        formatter_class=argparse.RawTextHelpFormatter)
+    req = p.add_argument_group("Required arguments")
+    req.add_argument("--ref_genome", type=str, metavar="FILE",
+                     required=True, help="Reference genome FASTA.")
+    req.add_argument("--model_path", type=str, metavar="FILE",
+                     required=True, help="Trained checkpoint file.")
+    req.add_argument("--model_config_path", type=str, metavar="FILE",
+                     required=True, help="Pickled model config.")
+    opt = p.add_argument_group("Optional arguments")
+    opt.add_argument("--pred_file", type=str, metavar="FILE",
+                     default="genome_pred.tsv.gz",
+                     help="Output TSV. Default: genome_pred.tsv.gz.")
+    opt.add_argument("--calibrator_path", type=str, metavar="FILE",
+                     default="", help="Pickled calibrator.")
+    opt.add_argument("--poisson_calib", default=False,
+                     action="store_true",
+                     help="Poisson-based probability calibration.")
+    opt.add_argument("--focal_base", type=str,
+                     default="A" if model_type == "snv" else "all",
+                     choices=["A", "C", "G", "T", "all"],
+                     help="The model's focal base; '+' sites carry it, "
+                          "'-' sites its complement. 'all' predicts "
+                          "every position on '+' (INDEL mode). "
+                          "Default: %(default)s.")
+    opt.add_argument("--chroms", type=str, nargs="+", default=None,
+                     help="Restrict to these chromosomes.")
+    opt.add_argument("--pred_batch_size", type=int, metavar="INT",
+                     default=4096 if model_type == "snv" else 1024,
+                     help="Batch size (INDEL windows are 20-40x wider "
+                          "than SNV ones, so its default is smaller). "
+                          "Default: %(default)s.")
+    opt.add_argument("--n_devices", type=int, metavar="INT", default=1,
+                     help="Shard over this many devices (not ported "
+                          "yet).")
+    opt.add_argument("--n_workers", type=int, metavar="INT", default=None,
+                     help="Postprocess worker processes (calibration + "
+                          "formatting + gzip). 0 = inline. Default: "
+                          "auto-size from the host core count -- inline "
+                          "on <=2 cores, else cores-2 capped at 6.")
+    opt.add_argument("--fused_inference", default=False,
+                     action="store_true",
+                     help="BN-folded fused forward with the CUDA stem "
+                          "kernel (SNV model_no 2 only).")
+    opt.add_argument("--pred_time_view", default=False,
+                     action="store_true",
+                     help="Print a phase-timing table.")
+    _device_args(opt)
+    p.set_defaults(func="predict_genome")
+    return p
+
+
 def add_evaluate_parser(subparsers, model_type: str):
     p = subparsers.add_parser(
         "evaluate", help="Evaluate obs/pred correlations of predictions",

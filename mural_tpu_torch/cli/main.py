@@ -3,10 +3,8 @@
 
 ``train`` (standalone trials, or an ASHA-scheduled search with
 ``--use_ray``, on one or several devices, in threads or processes),
-``transfer``, ``predict``, ``evaluate``, ``scale``,
-``calc_scaling_factor``, ``get_best_model`` and ``convert`` are ported;
-``predict_genome`` raises ``NotImplementedError`` naming its ROADMAP.md
-item.
+``transfer``, ``predict``, ``predict_genome``, ``evaluate``, ``scale``,
+``calc_scaling_factor``, ``get_best_model`` and ``convert``.
 """
 
 from __future__ import annotations
@@ -19,8 +17,6 @@ import sys
 from mural_tpu_torch.cli import commands as C
 from mural_tpu_torch.tune.space import (Choice, SampleFrom,
                                         loguniform_or_choice)
-
-_NOT_PORTED = {"predict_genome": 9}
 
 
 def create_parser(model_type: str) -> argparse.ArgumentParser:
@@ -35,6 +31,7 @@ def create_parser(model_type: str) -> argparse.ArgumentParser:
     C.add_train_parser(sub, model_type)
     C.add_transfer_parser(sub, model_type)
     C.add_predict_parser(sub, model_type)
+    C.add_predict_genome_parser(sub, model_type)
     C.add_evaluate_parser(sub, model_type)
     C.add_scale_parser(sub, model_type)
     C.add_calc_scaling_factor_parser(sub, model_type)
@@ -284,6 +281,31 @@ def cmd_predict(args, model_type: str) -> int:
     return 0
 
 
+def cmd_predict_genome(args, model_type: str) -> int:
+    """``mural_tpu/cli/main.py:317-336``."""
+    from mural_tpu_torch.device import resolve_device
+    from mural_tpu_torch.predict.genome_wide import (GenomePredictOptions,
+                                                     run_genome_predict)
+    opts = GenomePredictOptions(
+        ref_genome=_abspath(args.ref_genome),
+        model_path=_abspath(args.model_path),
+        model_config_path=_abspath(args.model_config_path),
+        pred_file=args.pred_file,
+        calibrator_path=_abspath(args.calibrator_path),
+        poisson_calib=args.poisson_calib,
+        focal_base=args.focal_base,
+        chroms=args.chroms,
+        batch_size=args.pred_batch_size,
+        n_devices=args.n_devices,
+        n_workers=args.n_workers,
+        fused_inference=args.fused_inference,
+        time_view=args.pred_time_view,
+        device=resolve_device(args.cpu_only, args.cuda_id),
+    )
+    run_genome_predict(opts, model_type)
+    return 0
+
+
 def cmd_evaluate(args, model_type: str) -> int:
     """k-mer and regional correlation files of a prediction TSV
     (``mural_tpu/cli/main.py:339-373``)."""
@@ -343,10 +365,6 @@ def cmd_calc_scaling_factor(args, model_type: str) -> int:
 
 def main(model_type: str, argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in _NOT_PORTED:
-        raise NotImplementedError(
-            f"mural_{model_type} {argv[0]} is not ported yet "
-            f"(ROADMAP.md item {_NOT_PORTED[argv[0]]})")
     parser = create_parser(model_type)
     args = parser.parse_args(argv)
     if not getattr(args, "func", None):
@@ -357,7 +375,8 @@ def main(model_type: str, argv=None) -> int:
 
 
 _DISPATCH = {"train": cmd_train, "transfer": cmd_transfer,
-             "predict": cmd_predict, "evaluate": cmd_evaluate,
+             "predict": cmd_predict,
+             "predict_genome": cmd_predict_genome, "evaluate": cmd_evaluate,
              "scale": cmd_scale,
              "calc_scaling_factor": cmd_calc_scaling_factor,
              "get_best_model": cmd_get_best_model, "convert": cmd_convert}

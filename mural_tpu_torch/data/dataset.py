@@ -16,6 +16,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from mural_tpu_torch import native
 from mural_tpu_torch.genome import encode as enc
 from mural_tpu_torch.genome.bed import BedFile, segment_sites
 from mural_tpu_torch.genome.fasta import Genome
@@ -78,7 +79,8 @@ class SiteDataset:
         return np.arange(self.seg_offsets[seg], self.seg_offsets[seg + 1])
 
     def gather_distal(self, rows: np.ndarray) -> np.ndarray:
-        """uint8 code windows (len(rows), distal_width) for site rows."""
+        """uint8 code windows (len(rows), distal_width) for site rows,
+        gathered by the native loop."""
         rows = np.asarray(rows)
         width = self.distal_width
         out = np.empty((len(rows), width), dtype=np.uint8)
@@ -88,8 +90,8 @@ class SiteDataset:
         neg = self.strand_neg[rows]
         for cid in np.unique(cids):
             m = cids == cid
-            out[m] = enc.gather_windows(self.chrom_codes[cid], starts[m],
-                                        width, neg[m])
+            out[m] = native.gather_windows(self.chrom_codes[cid],
+                                           starts[m], width, neg[m])
         return out
 
     def gather_distal_track_values(self, rows: np.ndarray) -> np.ndarray:
@@ -200,7 +202,7 @@ def prepare_dataset(bed: "BedFile | str", genome: "Genome | str",
                 local_radius)
 
     local1 = enc.order1_local(local_windows)
-    cat = (enc.kmer_ids(local_windows, local_order) if local_order > 1
+    cat = (native.kmer_pack(local_windows, local_order) if local_order > 1
            else local1.astype(np.int32))
 
     use_tracks = tracks is not None and not seq_only and len(tracks) > 0

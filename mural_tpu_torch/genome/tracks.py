@@ -34,6 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from mural_tpu_torch import native
 from mural_tpu_torch.genome.encode import expanded_start
 
 _K = 4096                    # block size (bases per float32 restart)
@@ -214,7 +215,17 @@ class PrefixTrack:
     def mean_ranges(self, chrom: str, starts: np.ndarray,
                     stops: np.ndarray) -> np.ndarray:
         """float64 mean over each [start, stop) clipped to the chromosome;
-        0 for an empty range or an unknown chromosome."""
+        0 for an empty range or an unknown chromosome.  One native pass
+        over the sites (:func:`mural_tpu_torch.native.track_mean`)."""
+        if chrom not in self.chroms:
+            return np.zeros(len(starts), dtype=np.float64)
+        block_prefix, inblock = self.chroms[chrom]
+        return native.track_mean(block_prefix, inblock, starts, stops, _K)
+
+    def mean_ranges_reference(self, chrom: str, starts: np.ndarray,
+                              stops: np.ndarray) -> np.ndarray:
+        """Plain numpy version of :meth:`mean_ranges` (the same float64
+        arithmetic)."""
         starts = np.asarray(starts, dtype=np.int64)
         stops = np.asarray(stops, dtype=np.int64)
         if chrom not in self.chroms:

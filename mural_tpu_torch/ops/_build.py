@@ -67,23 +67,28 @@ class KernelLibrary:
         if not os.path.exists(nvcc):
             raise RuntimeError(f"{self.name}: nvcc not found (needed to "
                                f"build {self.source.name} for CUDA tensors)")
-        so.parent.mkdir(parents=True, exist_ok=True)
-        # compile to a temporary name and rename, so concurrent builders
-        # never load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
-        os.close(fd)
-        try:
-            res = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, str(self.source)],
-                capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {self.source}:\n"
-                                   f"{res.stderr}")
-            os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-        return res.stdout + res.stderr
+        return build_shared([nvcc, *NVCC_FLAGS], self.source, so)
+
+
+def build_shared(command: Sequence[str], source: Path, so: Path) -> str:
+    """Run ``command -o <tmp> source`` and rename ``<tmp>`` to ``so``;
+    returns the compiler's output and raises with its errors.  The
+    temporary name is unique to the call, so concurrent builds (threads
+    or processes) never load a half-written library."""
+    so.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
+    os.close(fd)
+    try:
+        res = subprocess.run([*command, "-o", tmp, str(source)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"{os.path.basename(command[0])} failed on "
+                               f"{source}:\n{res.stderr}")
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return res.stdout + res.stderr
 
 
 def check_launch(err: int, what: str) -> None:

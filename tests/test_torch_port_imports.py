@@ -33,6 +33,10 @@ TRACKS_SLICE = [f"mural_tpu_torch.{m}" for m in (
 SEARCH_SLICE = [f"mural_tpu_torch.{m}" for m in (
     "tune.space", "tune.asha", "tune.runner", "utils.zoo", "utils.params",
     "train.loop", "train.checkpoint", "cli.main", "cli.commands")]
+# genome-wide predict, the output farm and the native host loops
+GENOME_SLICE = [f"mural_tpu_torch.{m}" for m in (
+    "native", "ops.device_gather", "predict.post_farm",
+    "predict.genome_wide", "cli.main", "cli.commands")]
 
 
 def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
@@ -58,6 +62,8 @@ def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
         cal = load_calibrator({str(tmp_path / 'cal.pkl')!r})
         out = cal.predict_proba(np.load({str(tmp_path / 'probs.npy')!r}))
         np.save({str(tmp_path / 'out.npy')!r}, out)
+        from mural_tpu_torch import native
+        native.load()
         banned = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                                "optax", "mural_tpu",
@@ -76,11 +82,14 @@ def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
                  if line.startswith(("MODULES", "BANNED", "NAMES")))
     n_modules, cal_module = lines["MODULES"].split()
     assert int(n_modules) >= 55
-    # the training, evaluation, INDEL, track and search slices' modules
-    # are among those imported
+    # the training, evaluation, INDEL, track, search and genome-wide
+    # slices' modules are among those imported
     assert set(TRAIN_SLICE + EVAL_SLICE + INDEL_SLICE + TRACKS_SLICE
-               + SEARCH_SLICE) <= set(lines["NAMES"].split(","))
+               + SEARCH_SLICE + GENOME_SLICE) <= set(
+                   lines["NAMES"].split(","))
     assert cal_module == "mural_tpu_torch.calibrate.dirichlet"
+    # no mural_tpu.native either (the port keeps its own copy, loaded
+    # above); the first field of the name, so mural_tpu_torch passes
     assert lines["BANNED"] == "[]"
     np.testing.assert_allclose(np.load(tmp_path / "out.npy"),
                                cal.predict_proba(probs), rtol=1e-12)

@@ -4,8 +4,7 @@ train -> get_best_model -> predict; predict on one mural_tpu-written
 INDEL triple (msgpack weights and a fitted FullDirichlet calibrator)
 against mural_tpu's ``run_predict``; evaluate (even k and the motif
 correlation), calc_scaling_factor and scale writing the same files as
-the JAX package's CLI; and the entry points that need a card or are not
-ported."""
+the JAX package's CLI; and the entry points that need a card."""
 import os
 
 import numpy as np
@@ -215,8 +214,8 @@ def _text(path):
 
 
 def test_entry_points_need_a_card_or_raise(data, monkeypatch):
-    """Without --cpu_only and without a card, train, predict, transfer
-    and convert raise; predict_genome is not ported."""
+    """Without --cpu_only and without a card, train, predict,
+    predict_genome, transfer and convert raise."""
     import torch
     base, fasta, bed = data
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -231,8 +230,9 @@ def test_entry_points_need_a_card_or_raise(data, monkeypatch):
                  ["convert", "--checkpoint_dir", "d", "--out_dir", "o"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port_cli(argv)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 9"):
-        port_cli(["predict_genome"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_cli(["predict_genome", "--ref_genome", fasta, "--model_path",
+                  "m", "--model_config_path", "c"])
     with pytest.raises(ValueError, match="model_no for indel"):
         port_cli(["train", "--cpu_only", "--ref_genome", fasta,
                   "--train_data", bed, "--model_no", "2"])
