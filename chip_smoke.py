@@ -49,12 +49,16 @@ Phases (any failure raises and the script exits non-zero):
    correlations take; then the same without ``--fused_inference`` and
    without the correlations, whose rows must agree within ``%.4g``;
 7. ``mural_snv train --fused_stem on --epochs 2`` through the CLI on the
-   ``--n_train`` sites: both checkpoint triples, finite metrics (the
+   ``--n_train`` sites, which takes the default path: device-resident
+   data, 8 train steps per CUDA graph replay (the log line says so):
+   both checkpoint triples, finite metrics (the
    regional ``score`` included) in both ``epoch_<n>_metrics.txt`` and in
    ``progress.csv``, K2 launched twice per train step and validation
-   batch and K3 twice per train step; then ``get_best_model`` and
+   batch and K3 twice per train step (a replay counts the launches its
+   graph recorded); then ``get_best_model`` and
    ``predict --fused_inference`` on the best triple; then one epoch with
-   ``--fused_stem off --save_valid_preds --poisson_calib``, whose
+   ``--fused_stem off --save_valid_preds --poisson_calib --resident_data
+   off --steps_per_dispatch 1`` (host-fed, one eager step per batch), whose
    ``checkpoint_0/model.valid_preds.tsv.gz`` has the predict schema and
    whose log has the Poisson-calibrated evaluation lines;
 8. ``mural_snv evaluate`` (k-mer and regional; then ``--kmer_only
@@ -138,8 +142,28 @@ Phases (any failure raises and the script exits non-zero):
     on a seeded 200,000-base chromosome of its own (200,000 rows of
     ``prob0..7`` summing to 1, K1-K3 0 times, sites/s) and ``predict`` of
     a BED of 5,000 of its sites within ``%.4g``;
-13. a JSON line of the kernels (with ``launches_phase11`` and
-    ``launches_phase12``) and a timing line.
+13. the device-fed train loop: SNVNet2 at the CLI default widths (B=128,
+    dropout 0, Adam, ``--lr_scheduler StepLR2``) on phase 10's 20,000
+    training sites, fed six ways: batches built between eager steps of
+    torch's Adam (the loop before this slice), host-fed through the
+    prefetch thread, host-fed with 8 steps per CUDA graph replay,
+    resident with one eager step per batch, resident with 8 steps per
+    replay fused and unfused (the graph runs two epochs, the others
+    one); each run's windows/s per epoch, step ms and the device's busy
+    ms per step (torch.profiler over 16 more steps); with deterministic
+    cuDNN, one epoch of resident + 8-step graphs against the host-fed
+    eager steps (per-step loss within 1e-4, final parameters within 1e-4
+    as relative L2 over all parameters) and 3 eager steps of
+    GraphOptimizer against torch's Adam (1e-4), and, recorded without a
+    check, 32 steps of each of the first two with the CLI's dropout
+    (whether replays draw eager's masks); K2 and K3 launched twice
+    per step in every fused run (replays included) and never unfused;
+    the INDEL U-Net at its defaults, one resident epoch and one host-fed
+    (windows/s, busy share), and 16 steps of each with deterministic
+    cuDNN within 1e-4; ``train --profile_dir`` on 2,000 sites writes a
+    trace holding device events, K2 among them;
+14. a JSON line of the kernels (with ``launches_phase11``,
+    ``launches_phase12`` and ``launches_phase13``) and a timing line.
 
 The last line of standard output is the device record
 ``{"ok": true, "device": {...}}``.  ``--only_kernels`` runs the setup
@@ -1039,6 +1063,10 @@ def phase_train_cli(work, fasta, bed, n_train, cuda_id):
     rows = progress.read_text().splitlines() if progress.exists() else []
     check_all("train --fused_stem on", {
         "exit code 0": run["rc"] == 0,
+        f"resident data, {FED_K} steps per CUDA graph replay": any(
+            line.startswith("device-resident data: ") and line.endswith(
+                f"{FED_K} train steps per CUDA graph replay")
+            for line in run["lines"]),
         "one trial": run["n_trials"] == 1,
         "two epochs logged": len(epochs) == 2,
         "checkpoint_0 and checkpoint_1 hold the triple": all(
@@ -1089,13 +1117,16 @@ def phase_train_cli(work, fasta, bed, n_train, cuda_id):
             pred["launches"] == 2 * n_batches,
     })
 
+    # the host-fed path with one eager step per batch stays driven here
     off = cli_train(cli, work, fasta, bed, "unfused", cuda_id,
                     ["--fused_stem", "off", "--epochs", "1",
-                     "--save_valid_preds", "--poisson_calib"])
+                     "--save_valid_preds", "--poisson_calib",
+                     "--resident_data", "off", "--steps_per_dispatch", "1"])
     valid_preds = off["trial"] / "checkpoint_0" / "model.valid_preds.tsv.gz"
     vp = read_tsv(valid_preds) if valid_preds.exists() else ([], [], None)
     off_log = (off["trial"] / "training.log").read_text()
-    check_all("train --fused_stem off --save_valid_preds --poisson_calib", {
+    check_all("train --fused_stem off --save_valid_preds --poisson_calib "
+              "--resident_data off --steps_per_dispatch 1", {
         "exit code 0": off["rc"] == 0,
         "one epoch logged": len(off["epochs"]) == 1,
         "checkpoint_0 holds the triple": all(
@@ -1807,8 +1838,8 @@ def phase_family_cli(work, fasta, bed, train_bed, track_list, cuda_id):
     pred["sites_per_s"] = n_sites / pred["seconds"]
     view = next((line for line in pred["lines"]
                  if line.startswith("time view")), "")
-    m = re.search(r"host batch build ([\d.]+)s, of which track windows "
-                  r"([\d.]+)s", view)
+    m = re.search(r"host batch build on the prefetch thread ([\d.]+)s, of "
+                  r"which track windows ([\d.]+)s", view)
     pred["batch_build_s"], pred["track_windows_s"] = (
         (float(m[1]), float(m[2])) if m else (None, None))
     log(f"predict --bw_paths (SNVNet3, 6 channels): {pred['seconds']:.3f} "
@@ -2483,16 +2514,337 @@ def phase_genome_wide(work, fasta, model_path, indel_path, dev, seed):
     return out
 
 
+# --- phase 13: the device-fed train loop ---------------------------------
+
+FED_K = 8               # train steps per CUDA graph replay (the SNV default)
+FED_SEGMENTS = 10       # --sampled_segments' default
+PROFILED_STEPS = 16     # steps of each run's torch.profiler window
+FED_LR = 1e-3           # --learning_rate's default
+# (name, feed, fused stem, K, epochs) of the timed SNV runs, from the
+# loop before this slice to resident data with K steps per replay; runs
+# that capture a graph take a second epoch, which times the replays alone
+FED_RUNS = (("host_inline", "inline", True, 1, 1),
+            ("host_prefetch", "prefetch", True, 1, 1),
+            ("host_graphs", "prefetch", True, FED_K, 2),
+            ("resident", "resident", True, 1, 1),
+            ("resident_graphs", "resident", True, FED_K, 2),
+            ("resident_graphs_unfused", "resident", False, FED_K, 2))
+# eager steps of GraphOptimizer against torch's Adam: the two round the
+# update differently on the card, and Adam's dynamics amplify one
+# rounding apart several-fold a step, so the card holds the first two
+# updates; the CPU tests hold 20 steps of every optimizer bit for bit
+FED_OPT_STEPS = 3
+
+
+def fed_dataset(bed, fasta, cfg, model_type):
+    from mural_tpu_torch.data.dataset import prepare_dataset
+    return prepare_dataset(bed, fasta, central_bp=cfg["segment_center"],
+                           local_radius=cfg["local_radius"],
+                           local_order=cfg["local_order"],
+                           distal_radius=cfg["distal_radius"],
+                           model_type=model_type)
+
+
+def fed_epoch(feed, state, ds, res, fused, dev, rng, groups, limit=None):
+    """One epoch's train steps (the first ``limit`` of them) fed one way;
+    returns the per-step losses on the device.  ``inline`` is the loop
+    before this slice: each batch built and uploaded between eager steps
+    of torch's optimizer at a float LR (``train_step``); ``prefetch`` is
+    the host-fed loop and ``resident`` the device-resident one, both in
+    ``groups`` of K (GraphOptimizer; one CUDA graph replay per group when
+    K > 1)."""
+    import itertools
+
+    import torch
+    from mural_tpu_torch.data.batcher import segment_pool_batches
+    from mural_tpu_torch.data.prefetch import (prefetch, prefetch_stacked,
+                                               stacked_inputs)
+    from mural_tpu_torch.device import to_device
+    from mural_tpu_torch.train.graphs import epoch_scalars
+    from mural_tpu_torch.train.resident import (resident_epoch,
+                                                stack_epoch_rows,
+                                                upload_rows)
+    from mural_tpu_torch.train.steps import model_input, train_step
+    B = TRAIN_BATCH
+    if feed == "resident":
+        rows_np, _, _ = stack_epoch_rows(ds, FED_SEGMENTS, B, True, rng)
+        rows = upload_rows(rows_np[:limit], dev)
+        return resident_epoch(groups, rows, to_device(
+            epoch_scalars(state, len(rows)), dev))
+    batches = itertools.islice(segment_pool_batches(
+        ds, FED_SEGMENTS, B, shuffle=True, rng=rng), limit)
+    losses = []
+    if feed == "inline":
+        mask = torch.ones(B, device=dev)
+        for b in batches:
+            losses.append(train_step(
+                state, to_device(b.y, dev).long(),
+                to_device(b.cat, dev).long(),
+                model_input(to_device(b.distal, dev), fused), mask)[0])
+        return torch.stack(losses)
+    n = ds.n_sites // B if limit is None else limit
+    scalars = to_device(epoch_scalars(state, n), dev)
+    done = 0
+    for db in (prefetch(batches, dev) if groups.k == 1
+               else prefetch_stacked(batches, groups.k, dev)):
+        inputs = stacked_inputs(db)
+        k = inputs[0].shape[0]
+        losses.append(groups.run(scalars[done:done + k], inputs))
+        done += k
+    return torch.cat(losses)
+
+
+def fed_run(feed, fused, k, model, ds, res, dev, seed, epochs, limit=None,
+            profile=True):
+    """``epochs`` epochs (of ``limit`` steps) of a fresh copy of ``model``
+    (Adam, StepLR2, the CLI's weight decay) fed one way: per-step losses,
+    final parameters, each epoch's seconds and windows/s, K2/K3 launches
+    counted from 0 (replays included), then with ``profile`` the device's
+    busy ms per step over ``PROFILED_STEPS`` more steps (torch.profiler)
+    against the last epoch's step ms."""
+    import torch
+    from mural_tpu_torch.ops import fused_train_stem as fts
+    from mural_tpu_torch.train.graphs import StepGroups, host_fed_batch
+    from mural_tpu_torch.train.optim import (GraphOptimizer, LRSchedule,
+                                             auto_weight_decay,
+                                             build_optimizer)
+    from mural_tpu_torch.train.resident import resident_batch
+    from mural_tpu_torch.train.steps import TrainState
+    B = TRAIN_BATCH
+    model = copy.deepcopy(model).to(dev)
+    # the weight decay of a two-epoch CLI run, whatever this run's epochs
+    wd = auto_weight_decay(0.1, B, 2, ds.n_sites, 1e-5)
+    state = TrainState(model, (build_optimizer if feed == "inline"
+                               else GraphOptimizer)(
+        "Adam", model.parameters(), wd),
+        LRSchedule.build("StepLR2", FED_LR, 0.9, B, ds.n_sites, 1e-4, 1e-6))
+    groups = None
+    if feed != "inline":
+        groups = StepGroups(state, k, resident_batch(
+            res, fused, torch.ones(B, device=dev)) if feed == "resident"
+            else host_fed_batch(fused))
+    rng = np.random.default_rng(seed)
+    torch.manual_seed(seed)                # the dropout masks' stream
+    out = {"losses": [], "epoch_s": [], "steps": []}
+    fts.FWD_LAUNCHES = fts.BWD_LAUNCHES = 0
+    for _ in range(epochs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = fed_epoch(feed, state, ds, res, fused, dev, rng, groups,
+                           limit)
+        torch.cuda.synchronize()
+        out["epoch_s"].append(time.perf_counter() - t0)
+        out["steps"].append(len(losses))
+        out["losses"] += losses.tolist()
+        state.epoch += 1
+    out["k2"], out["k3"] = fts.FWD_LAUNCHES, fts.BWD_LAUNCHES
+    out["params"] = [p.detach().clone() for p in model.parameters()]
+    out["windows_per_s"] = [n * B / s for n, s in zip(out["steps"],
+                                                      out["epoch_s"])]
+    out["step_ms"] = out["epoch_s"][-1] / out["steps"][-1] * 1e3
+    if profile:
+        busy = device_busy_ms(lambda: fed_epoch(
+            feed, state, ds, res, fused, dev,
+            np.random.default_rng(seed + 1), groups,
+            PROFILED_STEPS)) / PROFILED_STEPS
+        out["device_busy_ms"] = busy
+        out["device_busy_share"] = busy / out["step_ms"] if busy else None
+    return out
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms while the block runs.  Its default
+    weight-gradient algorithms sum in a varying order, and the training
+    dynamics amplify one rounding apart to loss differences far above
+    1e-4 within an epoch (phase 13 logs how far its timed runs drift), so
+    runs that must agree step for step run deterministic."""
+    import torch
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def rel_l2(a, b) -> float:
+    """Relative L2 distance of two parameter lists, over all parameters."""
+    num = sum(float((x - y).double().pow(2).sum()) for x, y in zip(a, b))
+    den = sum(float(y.double().pow(2).sum()) for y in b)
+    return math.sqrt(num / den)
+
+
+def phase_profile_dir(work, fasta, bed, cuda_id):
+    """``train --profile_dir`` through the CLI on every tenth site of
+    ``bed`` (2,000 over the whole genome): the trace file and its device
+    (kernel) events, K2 among them."""
+    from mural_tpu_torch.cli.mural_snv import main as cli
+    small = work / "profiled.bed"
+    small.write_text("\n".join(Path(bed).read_text().splitlines()[::10])
+                     + "\n")
+    prof = work / "prof"
+    run = cli_train(cli, work, fasta, str(small), "profiled", cuda_id,
+                    ["--fused_stem", "on", "--epochs", "1",
+                     "--profile_dir", str(prof)])
+    trace = prof / "train_epoch0.pt.trace.json"
+    events = (json.loads(trace.read_text())["traceEvents"]
+              if trace.exists() else [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    out = {"rc": run["rc"], "trace_events": len(events),
+           "kernel_events": len(kernels),
+           "k2_events": sum("code_conv_pool" in e.get("name", "")
+                            for e in kernels)}
+    log("train --profile_dir: " + json.dumps(out))
+    check_all("train --profile_dir", {
+        "exit code 0": run["rc"] == 0,
+        "'profiler trace written to' printed": any(
+            "profiler trace written to" in line for line in run["lines"]),
+        "the trace holds device events": out["kernel_events"] > 0,
+        "K2 among them": out["k2_events"] > 0,
+    })
+    return out
+
+
+def phase_device_fed(work, fasta, family_bed, indel_bed, dev, seed):
+    """Phase 13: the device-fed train loop, SNVNet2 at the CLI default
+    widths (dropout 0, ``--lr_scheduler StepLR2``) on phase 10's 20,000
+    training sites, each feed timed; resident + K=8 graphs held against
+    host-fed eager steps and GraphOptimizer against torch's Adam, with
+    deterministic cuDNN; the INDEL U-Net at its defaults, one resident
+    epoch against one host-fed; ``--profile_dir``."""
+    import torch
+    from mural_tpu_torch.models.init import init_weights
+    from mural_tpu_torch.models.registry import build_model_from_config
+    from mural_tpu_torch.train.resident import make_resident
+    cfg = dict(CONFIG, emb_dropout=0.0, local_dropout=0.0,
+               distal_fc_dropout=0.0)
+    t0 = time.perf_counter()
+    ds = fed_dataset(family_bed, fasta, cfg, "snv")
+    res = make_resident(ds, dev)
+    model = init_weights(build_model_from_config(cfg, 0, "snv"),
+                         torch.Generator().manual_seed(seed + 13))
+    dropout_model = init_weights(build_model_from_config(CONFIG, 0, "snv"),
+                                 torch.Generator().manual_seed(seed + 13))
+    part_s = {"setup": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    runs = {name: fed_run(feed, fused, k, model, ds, res, dev, seed, epochs)
+            for name, feed, fused, k, epochs in FED_RUNS}
+    part_s["snv_runs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    table = {name: {key: run[key] for key in (
+        "steps", "epoch_s", "windows_per_s", "step_ms", "device_busy_ms",
+        "device_busy_share", "k2", "k3")} for name, run in runs.items()}
+    log(f"device-fed train, SNVNet2 at B={TRAIN_BATCH} on {ds.n_sites} "
+        f"sites (busy from torch.profiler over {PROFILED_STEPS} more "
+        f"steps): " + json.dumps(table))
+    # the comparisons, with deterministic cuDNN: one epoch of the resident
+    # 8-step graph path against the host-fed path's eager steps, and
+    # GraphOptimizer's eager steps against torch's Adam at float LRs
+    with deterministic_cudnn():
+        ref = fed_run("prefetch", True, 1, model, ds, res, dev, seed, 1,
+                      profile=False)
+        fed = fed_run("resident", True, FED_K, model, ds, res, dev, seed, 1,
+                      profile=False)
+        torch_adam = fed_run("inline", True, 1, model, ds, res, dev, seed,
+                             1, FED_OPT_STEPS, profile=False)
+        # with the CLI's dropout: do replays draw eager's masks?
+        dropped = [fed_run(feed, True, k, dropout_model, ds, res, dev, seed,
+                           1, 4 * FED_K, profile=False)["losses"]
+                   for feed, k in (("prefetch", 1), ("resident", FED_K))]
+    rel = [abs(a - b) / abs(b) for a, b in zip(fed["losses"],
+                                              ref["losses"])]
+    params_rel = rel_l2(fed["params"], ref["params"])
+    opt_rels = [abs(a - b) / abs(b) for a, b in zip(torch_adam["losses"],
+                                                   ref["losses"])]
+    opt_rel = max(opt_rels)
+    dropout_rel = max(abs(a - b) / abs(b) for a, b in zip(*dropped))
+    # the timed runs (default cuDNN) drift apart chaotically: recorded
+    drift = max(abs(a - b) / abs(b) for a, b in zip(
+        runs["resident_graphs"]["losses"], runs["host_prefetch"]["losses"]))
+    log(f"resident + {FED_K}-step graphs against host-fed eager steps "
+        f"(deterministic cuDNN): max per-step loss rel diff {max(rel):.3g} "
+        f"over {len(rel)} steps, parameters' relative L2 distance "
+        f"{params_rel:.3g}; GraphOptimizer against torch's Adam, per "
+        f"step: {[float(f'{r:.3g}') for r in opt_rels]}; the timed runs "
+        f"(default cuDNN) {drift:.3g} apart over their first epoch; with "
+        f"the CLI's dropout, {4 * FED_K} steps of 8-step graphs against "
+        f"eager steps: {dropout_rel:.3g} (0: the replays draw eager's "
+        f"masks)")
+    steps = [run["steps"] for run in runs.values()]
+    part_s["snv_comparisons"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    indel_cfg = dict(INDEL_CONFIG)
+    ids = fed_dataset(indel_bed, fasta, indel_cfg, "indel")
+    ires = make_resident(ids, dev)
+    imodel = indel_model(seed + 14)
+    imodel.out_fc[1].p = 0.0
+    indel = {name: fed_run(feed, False, 1, imodel, ids, ires, dev, seed, 1)
+             for name, feed in (("host_prefetch", "prefetch"),
+                                ("resident", "resident"))}
+    with deterministic_cudnn():
+        icmp = [fed_run(feed, False, 1, imodel, ids, ires, dev, seed, 1,
+                        PROFILED_STEPS, profile=False)["losses"]
+                for feed in ("prefetch", "resident")]
+    irel = max(abs(a - b) / abs(b) for a, b in zip(*icmp))
+    itable = {name: {key: run[key] for key in (
+        "steps", "epoch_s", "windows_per_s", "step_ms", "device_busy_ms",
+        "device_busy_share")} for name, run in indel.items()}
+    log(f"device-fed train, INDEL U-Net at B={TRAIN_BATCH} on {ids.n_sites}"
+        f" sites (one epoch): " + json.dumps(itable) + f"; resident "
+        f"against host-fed over {PROFILED_STEPS} steps (deterministic "
+        f"cuDNN): max per-step loss rel diff {irel:.3g}")
+    part_s["indel"] = time.perf_counter() - t0
+    fused_steps = sum(runs["resident_graphs"]["steps"])
+    check_all("device-fed train", {
+        "finite losses in every run": all(
+            np.isfinite(run["losses"]).all()
+            for run in (*runs.values(), *indel.values(), fed, ref)),
+        "every SNV run took the same steps per epoch": len(
+            {s[0] for s in steps}) == 1,
+        f"resident + {FED_K}-step graphs against host-fed eager per-step "
+        f"loss within {TOL_STEP}": max(rel) <= TOL_STEP,
+        f"final parameters within {TOL_STEP} (relative L2)":
+            params_rel <= TOL_STEP,
+        f"GraphOptimizer against torch's Adam per-step loss within "
+        f"{TOL_STEP}": opt_rel <= TOL_STEP,
+        "K2 and K3 launched twice per step in every fused run (replays "
+        "included)": all(
+            run["k2"] == run["k3"] == 2 * sum(run["steps"])
+            for name, run in runs.items()
+            if name != "resident_graphs_unfused"),
+        f"{2 * fused_steps} K2 and K3 launches on the resident graph run":
+            runs["resident_graphs"]["k2"] == 2 * fused_steps,
+        "no K2/K3 launch unfused": runs["resident_graphs_unfused"]["k2"]
+        == runs["resident_graphs_unfused"]["k3"] == 0,
+        f"INDEL resident against host-fed per-step loss within {TOL_STEP}":
+            irel <= TOL_STEP,
+    })
+    t0 = time.perf_counter()
+    profiled = phase_profile_dir(work, fasta, family_bed, dev.index or 0)
+    part_s["profile_dir"] = time.perf_counter() - t0
+    log("phase 13 seconds by part: " + json.dumps(part_s))
+    return {"part_s": part_s, "snv": table, "indel": itable,
+            "loss_rel_diff": max(rel), "params_rel_l2": params_rel,
+            "optimizer_rel_diff": opt_rel, "timed_runs_drift": drift,
+            "dropout_graphs_rel_diff": dropout_rel,
+            "indel_loss_rel_diff": irel, "profile_dir": profiled}
+
+
 def kernel_records(k1, k23, k1_launches, train_on, family=None,
-                   later=None, genome=None):
+                   later=None, genome=None, fed=None):
     """The kernels' JSON records from phases 2-3; ``launches`` come from
     the main path's runs (None when it did not run): K1 from phase 6's
-    fused predict, K2/K3 from phase 7's fused train; ``launches_phase10``
-    from phase 10's runs (``family``: K1 on its predicts, K2/K3 on each
-    train run); ``launches_phase11`` from phase 11's runs in this process
-    (``later``: K1 on the transferred predict, K2/K3 on the SNV transfer
-    and the ASHA search; all three on the INDEL transfer);
-    ``launches_phase12``: K1 on each of phase 12's runs (``genome``)."""
+    fused predict, K2/K3 from phase 7's fused train (resident data, 8
+    steps per CUDA graph replay; each replay counts the launches its
+    graph recorded); ``launches_phase10`` from phase 10's runs
+    (``family``: K1 on its predicts, K2/K3 on each train run);
+    ``launches_phase11`` from phase 11's runs in this process (``later``:
+    K1 on the transferred predict, K2/K3 on the SNV transfer and the ASHA
+    search; all three on the INDEL transfer); ``launches_phase12``: K1 on
+    each of phase 12's runs (``genome``); ``launches_phase13``: K2/K3 on
+    each of phase 13's SNV runs (``fed``)."""
     p11 = None
     if later is not None:
         tr, ind = later["transfer"], later["indel_transfer"]["launches"]
@@ -2534,6 +2886,8 @@ def kernel_records(k1, k23, k1_launches, train_on, family=None,
         "launches_phase10": family and {
             name: run["k2"] for name, run in family["train"].items()},
         "launches_phase11": p11 and p11[1],
+        "launches_phase13": fed and {
+            name: run["k2"] for name, run in fed["snv"].items()},
     }, {
         "name": "code_conv_pool_bwd", "route": "cuda",
         "source": "mural_tpu_torch/ops/csrc/code_conv_pool.cu",
@@ -2548,6 +2902,8 @@ def kernel_records(k1, k23, k1_launches, train_on, family=None,
         "launches_phase10": family and {
             name: run["k3"] for name, run in family["train"].items()},
         "launches_phase11": p11 and p11[2],
+        "launches_phase13": fed and {
+            name: run["k3"] for name, run in fed["snv"].items()},
     }]
     return kernels
 
@@ -2650,11 +3006,15 @@ def main(argv=None) -> int:
     # 12. genome-wide predict (K1 on the fused SNV runs only)
     genome = timed("genome_wide", phase_genome_wide, work, fasta,
                    model_path, indel_path, dev, args.seed)
+    # 13. the device-fed train loop (K2/K3 counted from 0 around each run)
+    fed = timed("device_fed", phase_device_fed, work, fasta,
+                write_family_bed(work, train_bed), indel_beds[1], dev,
+                args.seed)
     shutil.rmtree(work, ignore_errors=True)
 
-    # 13. results
+    # 14. results
     log(json.dumps({"kernels": kernel_records(
-        k1, k23, fused["launches"], train_on, family, later, genome)}))
+        k1, k23, fused["launches"], train_on, family, later, genome, fed)}))
     log(json.dumps({
         "card": card, "build_s": t_build,
         "model_max_abs_err": model_err, **fwd_ms,
@@ -2674,6 +3034,7 @@ def main(argv=None) -> int:
         "snv_family": family,
         "transfer_search": later,
         "genome_wide": genome,
+        "device_fed": fed,
         "n_sites": args.n_sites, "n_train": args.n_train,
         "n_indel_sites": INDEL_SITES,
         "n_indel_train": INDEL_TRAIN, "batch": BATCH,

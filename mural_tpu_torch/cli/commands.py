@@ -70,12 +70,18 @@ def _learning_args(p, lr_default):
                    help="bfloat16 activations (not ported yet).")
     g.add_argument("--steps_per_dispatch", type=int, metavar="INT",
                    default=None,
-                   help="Train steps per device call; only 1 is ported. "
-                        "Default: 1.")
+                   help="Train steps per replay of one captured CUDA "
+                        "graph (eager steps on the CPU); amortises the "
+                        "host's per-step launch cost. 1 runs one eager "
+                        "step per batch. Default: 8 (SNV), 1 (INDEL).")
     g.add_argument("--resident_data", type=str, metavar="MODE",
                    default="auto", choices=["auto", "on", "off"],
-                   help="Device-resident training data ('on' is not "
-                        "ported yet; 'auto' feeds batches from the host). "
+                   help="Keep training data device-resident (the window "
+                        "arena uploaded once per trial; windows gathered "
+                        "and encoded on the device) instead of building "
+                        "batches on a host prefetch thread. 'auto' "
+                        "enables it when the data fit the device budget "
+                        "and no per-base track channels are used. "
                         "Default: auto.")
     g.add_argument("--fused_stem", type=str, metavar="MODE",
                    default="auto", choices=["auto", "on", "off"],
@@ -129,7 +135,9 @@ def _scheduler_args(p, default_experiment):
                    help="Data-parallel devices (only 1 is ported). "
                         "Default: 1.")
     g.add_argument("--profile_dir", type=str, metavar="DIR", default=None,
-                   help="Profiler trace directory (not ported yet).")
+                   help="Write a torch.profiler trace of the first "
+                        "epoch's train steps into this directory (one "
+                        "step per call while profiling).")
     g.add_argument("--rerun_failed", default=False, action="store_true",
                    help="Re-run errored trials of a previous experiment.")
     return g

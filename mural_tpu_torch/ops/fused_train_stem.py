@@ -28,8 +28,10 @@ PyTorch versions :func:`code_conv_pool_reference` and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import threading
 
 import torch
 
@@ -43,9 +45,15 @@ from mural_tpu_torch.ops.fused_code_conv import (NCODES, SENTINEL,
                                                  check_stem_args)
 
 # Launches of each CUDA kernel in this process (plain-version calls on
-# CPU tensors do not count).  Callers reset them to 0 to count a run.
+# CPU tensors do not count).  Callers reset them to 0 to count a run.  A
+# launch that a CUDA graph records counts at each replay of the graph
+# (:func:`captured_launches`, :func:`add_launches`), not at its capture.
 FWD_LAUNCHES = 0          # K2
 BWD_LAUNCHES = 0          # K3 (with its partial-sum reduce)
+_COUNT_LOCK = threading.Lock()
+# capture stream -> the [K2, K3] launches recorded on it so far; keyed by
+# stream, not thread, because autograd runs K3 on its own device thread
+_CAPTURED = {}
 
 LIBRARY = KernelLibrary("code_conv_pool", {
     # codes, row stride, table, bias, pooled, jstar, B, L, k, C, pk, pp,
@@ -260,16 +268,16 @@ def _fwd_kernel(codes, table, bias, pk, pp):
     if plan.grid == 0:
         return pooled, jstar
     lib = LIBRARY.load()
+    stream = current_stream(codes)
     with torch.cuda.device(codes.device):
         err = lib.code_conv_pool_fwd_launch(
             codes.data_ptr(), codes.stride(0), table.data_ptr(),
             bias.data_ptr(), pooled.data_ptr(), jstar.data_ptr(), B, L, k,
             C, pk, pp, P, plan.rows, plan.p_tile, plan.windows, plan.grid,
-            plan.threads, plan.smem, current_stream(codes))
+            plan.threads, plan.smem, stream)
     check_launch(err, f"code_conv_pool forward (B={B}, L={L}, k={k}, "
                       f"C={C}, pk={pk})")
-    global FWD_LAUNCHES
-    FWD_LAUNCHES += 1
+    _count(stream, 1, 0)
     return pooled, jstar
 
 
@@ -295,17 +303,50 @@ def _bwd_kernel(codes, jstar, g, k, pk, pp):
                           device=g.device)
     dtable = torch.empty((k, NCODES, C), dtype=torch.float32, device=g.device)
     lib = LIBRARY.load()
+    stream = current_stream(g)
     with torch.cuda.device(g.device):
         err = lib.code_conv_pool_bwd_launch(
             codes.data_ptr(), codes.stride(0), jstar.data_ptr(),
             g.data_ptr(), partial.data_ptr(), dtable.data_ptr(), B, L, k, C,
             pk, pp, P, plan.rows, plan.p_tile, plan.groups, plan.threads,
-            plan.grid, plan.smem, current_stream(g))
+            plan.grid, plan.smem, stream)
     check_launch(err, f"code_conv_pool backward (B={B}, L={L}, k={k}, "
                       f"C={C}, pk={pk})")
-    global BWD_LAUNCHES
-    BWD_LAUNCHES += 1
+    _count(stream, 0, 1)
     return dtable
+
+
+def _count(stream: int, fwd: int, bwd: int) -> None:
+    """Count launches made on ``stream``: into its capture's tally while a
+    CUDA graph records the stream, else into the totals."""
+    tally = _CAPTURED.get(stream)
+    if tally is None:
+        add_launches(fwd, bwd)
+    else:
+        tally[0] += fwd
+        tally[1] += bwd
+
+
+def add_launches(fwd: int, bwd: int) -> None:
+    """Add K2 and K3 launches to the totals (a graph's replay adds the
+    launches it recorded)."""
+    global FWD_LAUNCHES, BWD_LAUNCHES
+    with _COUNT_LOCK:
+        FWD_LAUNCHES += fwd
+        BWD_LAUNCHES += bwd
+
+
+@contextlib.contextmanager
+def captured_launches(stream: "torch.cuda.Stream"):
+    """While a CUDA graph captures ``stream``, count its K2/K3 launches
+    into the yielded ``[fwd, bwd]`` list instead of the totals: a capture
+    runs nothing, and each replay adds the list (:func:`add_launches`)."""
+    tally = [0, 0]
+    _CAPTURED[stream.cuda_stream] = tally
+    try:
+        yield tally
+    finally:
+        del _CAPTURED[stream.cuda_stream]
 
 
 def code_conv_pool_forward(codes, table, bias, pk: int, pp: int):

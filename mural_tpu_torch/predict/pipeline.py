@@ -24,7 +24,8 @@ import torch
 from mural_tpu_torch.calibrate.poisson import poisson_calibrate
 from mural_tpu_torch.data.batcher import segment_pool_batches
 from mural_tpu_torch.data.dataset import prepare_dataset
-from mural_tpu_torch.device import resolve_device, to_device
+from mural_tpu_torch.data.prefetch import prefetch
+from mural_tpu_torch.device import resolve_device
 from mural_tpu_torch.evaluation.evaluator import (_kmer_columns,
                                                   corr_calc_sub,
                                                   freq_kmer_comp_multi)
@@ -142,31 +143,35 @@ def run_predict(opts: PredictOptions, model_type: str = "snv",
 
         ds.gather_distal_track_values = timed_gather_tracks
 
+    # the host batch build runs on the prefetch thread: its seconds
+    build_s = [0.0]
+
+    def timed_batches():
+        batches = segment_pool_batches(ds, 1, opts.pred_batch_size,
+                                       shuffle=False, pad_final=True)
+        while True:
+            t = time.time()
+            batch = next(batches, None)
+            build_s[0] += time.time() - t
+            if batch is None:
+                return
+            yield batch
+
     test_size = ds.n_sites
     parts = []
-    B = opts.pred_batch_size
-    row_ids = torch.arange(B, device=device)
     t_fetch = t_pred = fetch_all = pred_all = 0.0
     t_loop = time.time()
     with torch.inference_mode():
         loss_dev = torch.zeros((), dtype=torch.float32, device=device)
         t0 = time.time()
-        for count, batch in enumerate(segment_pool_batches(
-                ds, 1, B, shuffle=False, pad_final=True), 1):
+        # t_fetch is the loop's wait for the prefetch thread's next batch
+        for count, db in enumerate(prefetch(timed_batches(), device), 1):
             t1 = time.time()
             t_fetch += t1 - t0
-            cat = torch.from_numpy(batch.cat).to(device).long()
-            codes = torch.from_numpy(batch.distal).to(device)
-            y = torch.from_numpy(batch.y).to(device).long()
-            cont = (None if batch.cont is None
-                    else to_device(batch.cont, device))
-            tracks = (None if batch.distal_tracks is None
-                      else to_device(batch.distal_tracks, device))
-            logits = forward(cat, codes, cont, tracks)
+            logits = forward(db.cat, db.distal, db.cont, db.distal_tracks)
             # no per-batch host sync: the loss accumulates on the device
-            loss_dev += masked_ce_sum(logits, y,
-                                      (row_ids < batch.n_valid).float())
-            parts.append(logits[:batch.n_valid])
+            loss_dev += masked_ce_sum(logits, db.y, db.mask)
+            parts.append(logits[:db.n_valid])
             t0 = time.time()
             t_pred += t0 - t1
             if opts.pred_time_view and count % 500 == 0:
@@ -223,10 +228,10 @@ def run_predict(opts: PredictOptions, model_type: str = "snv",
     if opts.pred_time_view:
         printer(f"time view: preprocess and model load "
                 f"{t_loop - start_time:.3f}s, batch loop {t_out - t_loop:.3f}s"
-                f" (host batch build {fetch_all + t_fetch:.3f}s"
+                f" (host batch build on the prefetch thread {build_s[0]:.3f}s"
                 + (f", of which track windows {track_s[0]:.3f}s"
                    if ds.distal_tracks is not None else "")
-                + f", copy and "
+                + f"; waiting for batches {fetch_all + t_fetch:.3f}s, "
                 f"forward enqueue {pred_all + t_pred:.3f}s), calibration, "
                 f"sort and output {t_corr - t_out:.3f}s, k-mer and "
                 f"regional correlation {time.time() - t_corr:.3f}s")

@@ -1,4 +1,4 @@
-"""The per-trial training pipeline, host-fed (counterpart of
+"""The per-trial training pipeline (counterpart of
 ``mural_tpu/train/loop.py``; ref MuRaL/training.py:45-567).
 
 track list (``--bw_paths``) -> dataset build (with the tracks' means as
@@ -9,10 +9,20 @@ train/validation split (``split_seed``) -> emb_dims -> model build
 or for a transfer the checkpoint's weights with the final FC layers
 re-initialised and, without ``train_all``, the rest frozen ->
 weight_decay_auto -> optimizer and LR schedule -> epochs of train steps
-on host-built batches -> per epoch: validation, FullDirichlet fit,
-k-mer and regional evaluation (whose regional score is the metrics'
-``score``), checkpoint triple, ``epoch_<n>_metrics.txt``, EarlyStopping
-and ROP -> ``progress.csv``.
+-> per epoch: validation, FullDirichlet fit, k-mer and regional
+evaluation (whose regional score is the metrics' ``score``), checkpoint
+triple, ``epoch_<n>_metrics.txt``, EarlyStopping and ROP ->
+``progress.csv``.
+
+The data reach the steps one of two ways, by the JAX package's rule
+(:func:`use_resident_data`): device-resident (``train/resident.py``: the
+window arena and per-site arrays uploaded once per trial, one row array
+per epoch, drawn and uploaded while the card runs the epoch before), or
+host-fed (batches built and uploaded on a prefetch thread,
+``data/prefetch.py``).  Either way the steps run K per CUDA graph replay
+(``train/graphs.py``; ``steps_per_dispatch``, 8 for SNV and 1 for INDEL
+by default) or, with K = 1, one eager step per batch.  ``profile_dir``
+records epoch 0's train steps with torch.profiler.
 
 The epoch tail (calibration, evaluation, checkpoint) runs inline after
 validation, where the JAX package overlaps it with the next epoch on a
@@ -40,6 +50,8 @@ from mural_tpu_torch.calibrate.fit import calibrate_prob
 from mural_tpu_torch.calibrate.poisson import poisson_calibrate
 from mural_tpu_torch.data.batcher import segment_pool_batches
 from mural_tpu_torch.data.dataset import SiteDataset, prepare_dataset
+from mural_tpu_torch.data.prefetch import (prefetch, prefetch_stacked,
+                                           stacked_inputs)
 from mural_tpu_torch.device import resolve_device, to_device
 from mural_tpu_torch.evaluation.evaluator import Evaluator
 from mural_tpu_torch.genome.fasta import Genome
@@ -48,10 +60,15 @@ from mural_tpu_torch.models.init import init_weights
 from mural_tpu_torch.models.registry import build_model, check_model_no
 from mural_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from mural_tpu_torch.train.early_stopping import EarlyStopping
-from mural_tpu_torch.train.optim import (LRSchedule, ReduceLROnPlateau,
-                                         auto_weight_decay, build_optimizer)
-from mural_tpu_torch.train.steps import (TrainState, eval_step, model_input,
-                                         train_step)
+from mural_tpu_torch.train.graphs import (StepGroups, epoch_scalars,
+                                          host_fed_batch, steps_per_dispatch)
+from mural_tpu_torch.train.optim import (GraphOptimizer, LRSchedule,
+                                         ReduceLROnPlateau, auto_weight_decay)
+from mural_tpu_torch.train.resident import (estimate_resident_bytes,
+                                            make_resident, resident_batch,
+                                            resident_epoch, resident_eval,
+                                            stack_epoch_rows, upload_rows)
+from mural_tpu_torch.train.steps import TrainState, eval_step, model_input
 from mural_tpu_torch.utils.params import count_parameters
 from mural_tpu_torch.utils.printer import get_printer
 from mural_tpu_torch.utils.trials import write_progress_csv
@@ -88,10 +105,16 @@ class TrainOptions:
     # torch device; None -> the CUDA card (RuntimeError without one)
     device: Optional[object] = None
     dp_devices: int = 1
+    # torch.profiler trace of epoch 0's train steps (forces K = 1)
     profile_dir: Optional[str] = None
     bf16: bool = False
-    steps_per_dispatch: Optional[int] = None   # None or 1: one step a call
-    resident: str = "auto"                     # auto runs host-fed
+    # train steps per CUDA graph replay; None -> 8 for SNV, 1 for INDEL
+    steps_per_dispatch: Optional[int] = None
+    # device-resident data: auto|on|off; auto -> resident when the data
+    # fit resident_max_bytes and have no distal track channels
+    resident: str = "auto"
+    # resident budget in bytes; None -> $MURAL_RESIDENT_MAX_BYTES or 8 GiB
+    resident_max_bytes: Optional[int] = None
     fused_stem: str = "auto"                   # auto|on|off; auto -> off
 
 
@@ -105,10 +128,7 @@ def check_ported(opts: TrainOptions, model_type: str = "snv") -> None:
     not_ported = [
         (opts.with_h5, "--with_h5", 4),
         (opts.bf16, "--bf16", 10),
-        ((opts.steps_per_dispatch or 1) > 1, "--steps_per_dispatch > 1", 10),
-        (opts.resident == "on", "--resident_data on", 10),
         (opts.dp_devices > 1, "--dp_devices > 1", 10),
-        (opts.profile_dir, "--profile_dir", 10),
     ]
     for value, flag, item in not_ported:
         if value:
@@ -214,6 +234,68 @@ def _check_classes(ds: SiteDataset, n_class: int, what: str) -> None:
 def _softmax(logits: np.ndarray) -> np.ndarray:
     e = np.exp(logits - logits.max(axis=1, keepdims=True))
     return e / e.sum(axis=1, keepdims=True)
+
+
+def use_resident_data(opts: TrainOptions, ds_train: SiteDataset,
+                      ds_valid: SiteDataset, batch_size: int,
+                      printer=print) -> bool:
+    """The JAX package's rule (``mural_tpu/train/loop.py:474-503,
+    542-557``): resident unless ``off``, distal track channels, or fewer
+    sites than a batch; ``on`` then always, ``auto`` when the estimate
+    fits the budget (``resident_max_bytes``, else
+    ``$MURAL_RESIDENT_MAX_BYTES``, else 8 GiB).  With a validation file
+    the JAX package first budgets twice the train estimate (its
+    validation set is still being prepared), then the real sum, and a
+    validation set over the budget falls back to host-fed batches."""
+    if (opts.resident == "off" or ds_train.distal_tracks is not None
+            or ds_train.n_sites < batch_size):
+        return False
+    if opts.resident == "on":
+        return True
+    budget = (opts.resident_max_bytes if opts.resident_max_bytes is not None
+              else int(os.environ.get("MURAL_RESIDENT_MAX_BYTES", 8 << 30)))
+    est_train = estimate_resident_bytes(ds_train)
+    est = est_train + estimate_resident_bytes(ds_valid)
+    if not opts.validation_data:
+        return est <= budget
+    if 2 * est_train > budget:
+        return False
+    if est > budget:
+        printer(f"device-resident data: validation set exceeds the "
+                f"budget ({est / 2**30:.2f} GiB > {budget / 2**30:.2f} "
+                f"GiB); using host-fed batches")
+        return False
+    return True
+
+
+def step_mode(k: int, device: torch.device) -> str:
+    """How the train steps run, for the log."""
+    if k == 1:
+        return "one eager train step per batch"
+    if device.type == "cuda":
+        return f"{k} train steps per CUDA graph replay"
+    return f"{k} eager train steps per group (no CUDA graphs on the CPU)"
+
+
+def _start_profiler(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, device: torch.device, out_dir: str) -> None:
+    """Stop the profiler after the device's work and write its Chrome
+    trace into ``out_dir``."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir,
+                                          "train_epoch0.pt.trace.json"))
 
 
 def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
@@ -338,11 +420,36 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
         config.get("lr_scheduler", "StepLR"), config["learning_rate"],
         config.get("LR_gamma", 0.9), config["batch_size"],
         max(train_size, 1), config["restart_lr"], config["min_lr"])
-    # a frozen parameter gets no optimizer update, Adam's or weight
-    # decay's
-    state = TrainState(model, build_optimizer(
+    # every step reads its LR from a device tensor filled once per epoch
+    # (GraphOptimizer), so that K steps replay as one CUDA graph and one
+    # step runs the same update.  A frozen parameter gets no optimizer
+    # update, Adam's or weight decay's
+    k_steps = steps_per_dispatch(opts.steps_per_dispatch, model_type,
+                                 opts.profile_dir)
+    state = TrainState(model, GraphOptimizer(
         config.get("optim", "Adam"), trainable, config["weight_decay"]),
         schedule)
+    B = config["batch_size"]
+
+    resident = use_resident_data(opts, ds_train, ds_valid, B, printer)
+    if resident:
+        res_train = make_resident(ds_train, device)
+        res_valid = make_resident(ds_valid, device)
+        # validation order is fixed: its rows and masks upload once
+        vrows_np, vmasks_np, v_n_valids = stack_epoch_rows(
+            ds_valid, config["sampled_segments"], B, shuffle=False,
+            pad_final=True)
+        vrows = upload_rows(vrows_np, device)
+        vmasks = torch.from_numpy(vmasks_np).to(device)
+        printer(f"device-resident data: train arena "
+                f"{res_train.arena.nbytes / 1e6:.1f} MB, valid arena "
+                f"{res_valid.arena.nbytes / 1e6:.1f} MB, "
+                f"{step_mode(k_steps, device)}")
+        groups = StepGroups(state, k_steps, resident_batch(
+            res_train, use_fused_stem, torch.ones(B, device=device)))
+    else:
+        printer(f"host-fed batches, {step_mode(k_steps, device)}")
+        groups = StepGroups(state, k_steps, host_fed_batch(use_fused_stem))
 
     es = EarlyStopping(patience=opts.grace_period, verbose=True,
                        trace_func=printer)
@@ -351,18 +458,56 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
     min_loss, min_loss_epoch, after_min_loss = 0.0, 0, 0
     metrics: Dict = {}
     host_rng = np.random.default_rng(opts.rng_seed)
-    B = config["batch_size"]
-    row_ids = torch.arange(B, device=device)
 
-    def device_batch(batch):
-        mask = (row_ids < batch.n_valid).float()
-        tracks = (None if batch.distal_tracks is None
-                  else to_device(batch.distal_tracks, device))
-        cont = None if batch.cont is None else to_device(batch.cont, device)
-        return (to_device(batch.y, device).long(),
-                to_device(batch.cat, device).long(),
-                model_input(to_device(batch.distal, device),
-                            use_fused_stem, tracks), mask, cont)
+    def train_rows():
+        rows, _, _ = stack_epoch_rows(ds_train, config["sampled_segments"],
+                                      B, shuffle=True, rng=host_rng)
+        return upload_rows(rows, device)
+
+    def host_fed_epoch():
+        """One epoch of batches built on the prefetch thread, in groups of
+        K; returns the loss sum on the device and the steps taken."""
+        batches = segment_pool_batches(ds_train, config["sampled_segments"],
+                                       B, shuffle=True, rng=host_rng)
+        # the loss accumulates on the device: no host sync per step
+        total = torch.zeros((), dtype=torch.float32, device=device)
+        scalars = to_device(epoch_scalars(state, train_size // B), device)
+        n_steps = 0
+        fetch_t = train_t = 0.0
+        t0 = time.time()
+        for db in (prefetch(batches, device) if k_steps == 1
+                   else prefetch_stacked(batches, k_steps, device)):
+            t1 = time.time()
+            fetch_t += t1 - t0
+            inputs = stacked_inputs(db)
+            k = inputs[0].shape[0]
+            total += groups.run(scalars[n_steps:n_steps + k], inputs).sum()
+            n_steps += k
+            t0 = time.time()
+            train_t += t0 - t1
+            if n_steps % 1000 < k and n_steps >= 1000:
+                printer(f"Batch {n_steps}: fetch {fetch_t:.1f}s, "
+                        f"train {train_t:.1f}s (last 1000, async)")
+                fetch_t = train_t = 0.0
+        return total, n_steps
+
+    def host_fed_valid():
+        """Validation batches built on the prefetch thread: (logits of
+        the real rows, loss sum on the device, batches)."""
+        total = torch.zeros((), dtype=torch.float32, device=device)
+        parts: List[torch.Tensor] = []
+        for db in prefetch(segment_pool_batches(
+                ds_valid, config["sampled_segments"], B, shuffle=False,
+                pad_final=True), device):
+            logits, vloss = eval_step(
+                model, db.y, db.cat,
+                model_input(db.distal, use_fused_stem, db.distal_tracks),
+                db.mask, db.cont)
+            total += vloss
+            parts.append(logits[:db.n_valid])
+        valid_logits = (torch.cat(parts).cpu().numpy() if parts
+                        else np.zeros((0, opts.n_class), np.float32))
+        return valid_logits, total, len(parts)
 
     data_local_valid = ds_valid.local_frame()
     chr_pos_valid = ds_valid.position_frame()
@@ -421,47 +566,43 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
                 fh.write(f"{k}: {v}\n")
         return m, eval_s
 
+    # the first epoch's rows; each later epoch's are drawn and uploaded
+    # while the card runs the epoch before
+    pending_rows = train_rows() if resident else None
     for epoch in range(opts.epochs):
         epoch_t = time.time()
-        # the loss accumulates on the device: no host sync per step
-        total_loss_dev = torch.zeros((), dtype=torch.float32, device=device)
-        n_steps = 0
-        fetch_t = train_t = 0.0
-        t0 = time.time()
-        for batch in segment_pool_batches(
-                ds_train, config["sampled_segments"], B, shuffle=True,
-                rng=host_rng):
-            t1 = time.time()
-            fetch_t += t1 - t0
-            y, cat, distal, mask, cont = device_batch(batch)
-            loss, _ = train_step(state, y, cat, distal, mask, cont)
-            total_loss_dev += loss
-            n_steps += 1
-            t0 = time.time()
-            train_t += t0 - t1
-            if n_steps % 1000 == 0:
-                printer(f"Batch {n_steps}: fetch {fetch_t:.1f}s, "
-                        f"train {train_t:.1f}s (last 1000, async)")
-                fetch_t = train_t = 0.0
+        prof = (_start_profiler(device)
+                if opts.profile_dir is not None and epoch == 0 else None)
+        if resident:
+            rows = pending_rows
+            n_steps = rows.shape[0]
+            total_loss_dev = resident_epoch(groups, rows, to_device(
+                epoch_scalars(state, n_steps), device)).sum()
+            if epoch + 1 < opts.epochs:
+                pending_rows = train_rows()
+        else:
+            total_loss_dev, n_steps = host_fed_epoch()
+        if prof is not None:
+            _stop_profiler(prof, device, opts.profile_dir)
+            printer("profiler trace written to", opts.profile_dir)
         total_loss = float(total_loss_dev)
         t_train_done = time.time()
         printer("optimizer learning rate:", state.lr())
 
         # ---- validation ----------------------------------------------
-        vloss_dev = torch.zeros((), dtype=torch.float32, device=device)
-        parts: List[torch.Tensor] = []
-        n_valid_batches = 0
-        for batch in segment_pool_batches(
-                ds_valid, config["sampled_segments"], B, shuffle=False,
-                pad_final=True):
-            y, cat, distal, mask, cont = device_batch(batch)
-            logits, vloss = eval_step(model, y, cat, distal, mask, cont)
-            vloss_dev += vloss
-            parts.append(logits[:batch.n_valid])
-            n_valid_batches += 1
+        if resident:
+            logits, vloss_dev = resident_eval(model, res_valid, vrows,
+                                              vmasks, use_fused_stem)
+            n_valid_batches = len(v_n_valids)
+            lg = (logits.cpu().numpy() if logits is not None
+                  else np.zeros((0, B, opts.n_class), np.float32))
+            valid_logits = (np.concatenate([lg[i, :n] for i, n in
+                                            enumerate(v_n_valids)])
+                            if v_n_valids
+                            else np.zeros((0, opts.n_class), np.float32))
+        else:
+            valid_logits, vloss_dev, n_valid_batches = host_fed_valid()
         valid_total_loss = float(vloss_dev)
-        valid_logits = (torch.cat(parts).cpu().numpy() if parts
-                        else np.zeros((0, opts.n_class), np.float32))
         t_valid_done = time.time()
 
         metrics, eval_s = epoch_tail(epoch, _softmax(valid_logits),

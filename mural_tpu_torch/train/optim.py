@@ -1,16 +1,22 @@
 """Optimizers and learning-rate schedules (counterpart of
 ``mural_tpu/train/optim.py``).
 
-- optimizers (``build_optimizer``): ``Adam`` with L2 in the gradient,
-  ``AdamW`` / ``AdamW2`` as ``torch.optim.AdamW(amsgrad=True)`` (torch
-  maxes the raw second moment, the rule the JAX package re-implements),
-  ``SGD`` with momentum 0.98 and Nesterov;
+- ``GraphOptimizer``, the optimizer of every train step of the loop:
+  ``Adam`` with L2 in the gradient, ``AdamW`` / ``AdamW2`` with
+  decoupled decay and amsgrad (the raw second moment maxed, the rule the
+  JAX package re-implements), ``SGD`` with momentum 0.98 and Nesterov,
+  as plain tensor ops whose LR (and Adam's bias corrections) come from a
+  device tensor, so that a CUDA graph of K steps replays each at its own
+  LR (``train/graphs.py``);
+- ``build_optimizer``: torch's own optimizers with the same settings, at
+  a float LR: the reference the tests and ``chip_smoke.py`` hold
+  ``GraphOptimizer`` against;
 - ``auto_weight_decay``: ``wd = 1 - wda ** (batch_size / (epochs *
   train_size))``;
 - ``LRSchedule``: the LR of optimizer step ``step`` for StepLR, StepLR2
   and constant schedules, with the restart to ``restart_lr`` whenever
-  the decayed LR would fall below ``min_lr``; pure Python, evaluated by
-  the train step before each ``optimizer.step()``;
+  the decayed LR would fall below ``min_lr``; pure Python, evaluated on
+  the host for each step of an epoch;
 - ``ReduceLROnPlateau``: stepped once per epoch with the validation loss.
 """
 
@@ -129,19 +135,107 @@ class ReduceLROnPlateau:
         return self.lr
 
 
+BETAS, EPS, MOMENTUM = (0.9, 0.999), 1e-8, 0.98
+OPTIMIZERS = ("Adam", "AdamW", "AdamW2", "SGD")
+
+
+def _check_name(name: str) -> None:
+    if name not in OPTIMIZERS:
+        raise ValueError(f"unsupported optimization method {name}")
+
+
 def build_optimizer(name: str, params: Iterable[torch.nn.Parameter],
                     weight_decay: float) -> torch.optim.Optimizer:
-    """The named optimizer at lr 0; the train step sets each step's LR
+    """torch's named optimizer at lr 0 (the reference of
+    :class:`GraphOptimizer`); ``steps.train_step`` sets each step's LR
     from the schedule before ``optimizer.step()``."""
+    _check_name(name)
     params = list(params)
     if name == "Adam":
-        return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999),
-                                eps=1e-8, weight_decay=weight_decay)
+        return torch.optim.Adam(params, lr=0.0, betas=BETAS, eps=EPS,
+                                weight_decay=weight_decay)
     if name in ("AdamW", "AdamW2"):
-        return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999),
-                                 eps=1e-8, weight_decay=weight_decay,
-                                 amsgrad=True)
-    if name == "SGD":
-        return torch.optim.SGD(params, lr=0.0, momentum=0.98,
-                               nesterov=True, weight_decay=weight_decay)
-    raise ValueError(f"unsupported optimization method {name}")
+        return torch.optim.AdamW(params, lr=0.0, betas=BETAS, eps=EPS,
+                                 weight_decay=weight_decay, amsgrad=True)
+    return torch.optim.SGD(params, lr=0.0, momentum=MOMENTUM, nesterov=True,
+                           weight_decay=weight_decay)
+
+
+class GraphOptimizer:
+    """``build_optimizer``'s update as plain tensor ops that read the
+    step's scalars from the device tensor ``scalars``: the LR, Adam's
+    step size ``lr / (1 - beta1**t)`` and ``sqrt(1 - beta2**t)``, and
+    AdamW's decay ``1 - lr * weight_decay``.  The host computes them in
+    float64, as torch's optimizers do (:meth:`step_scalars`), and a step
+    copies its row in first, so a captured CUDA graph replays every step
+    at its own LR.  torch's optimizers cannot serve here: a float LR is
+    baked into the graph, SGD reads a tensor LR on the host, and
+    capturable Adam refuses CPU tensors, on which the tests run this
+    code.  State and arithmetic are torch's single-tensor updates', in
+    their order of operations (bit-equal on the CPU; SGD's momentum
+    buffer starts at zero, which makes its first step torch's copy of the
+    gradient)."""
+
+    N_SCALARS = 4
+
+    def __init__(self, name: str, params: Iterable[torch.nn.Parameter],
+                 weight_decay: float):
+        _check_name(name)
+        self.name = name
+        self.params = list(params)
+        self.weight_decay = weight_decay
+        self.scalars = torch.zeros(self.N_SCALARS, dtype=torch.float32,
+                                   device=self.params[0].device)
+
+        def zeros():
+            return [torch.zeros_like(p) for p in self.params]
+
+        if name == "SGD":
+            self.state = {"momentum": zeros()}
+        else:
+            self.state = {"exp_avg": zeros(), "exp_avg_sq": zeros()}
+            if name != "Adam":
+                self.state["max_exp_avg_sq"] = zeros()
+
+    def step_scalars(self, lr: float, t: int) -> tuple:
+        """The scalars of optimizer step ``t`` (1-based) at LR ``lr``."""
+        if self.name == "SGD":
+            return (lr, 0.0, 0.0, 0.0)
+        return (lr, lr / (1 - BETAS[0] ** t), (1 - BETAS[1] ** t) ** 0.5,
+                1 - lr * self.weight_decay)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """One update of the parameters that have a gradient."""
+        live = [i for i, p in enumerate(self.params) if p.grad is not None]
+        params = [self.params[i] for i in live]
+        grads = [self.params[i].grad for i in live]
+        state = {k: [v[i] for i in live] for k, v in self.state.items()}
+        lr, step_size, bc2_sqrt, decay = self.scalars.unbind()
+        wd = self.weight_decay
+        if wd and self.name in ("Adam", "SGD"):       # L2 in the gradient
+            grads = torch._foreach_add(grads, params, alpha=wd)
+        if self.name == "SGD":
+            buf = state["momentum"]
+            torch._foreach_mul_(buf, MOMENTUM)
+            torch._foreach_add_(buf, grads)
+            grads = torch._foreach_add(grads, buf, alpha=MOMENTUM)
+            # p - lr * g in one rounding, as torch's add_(alpha=-lr)
+            torch._foreach_addcmul_(params, grads, [lr] * len(params),
+                                    value=-1)
+            return
+        if wd and self.name != "Adam":                # decoupled decay
+            torch._foreach_mul_(params, decay)
+        m, v = state["exp_avg"], state["exp_avg_sq"]
+        torch._foreach_lerp_(m, grads, 1 - BETAS[0])
+        torch._foreach_mul_(v, BETAS[1])
+        torch._foreach_addcmul_(v, grads, grads, 1 - BETAS[1])
+        if self.name != "Adam":                       # amsgrad
+            torch._foreach_maximum_(state["max_exp_avg_sq"], v)
+            v = state["max_exp_avg_sq"]
+        denom = torch._foreach_sqrt(v)
+        torch._foreach_div_(denom, bc2_sqrt)
+        torch._foreach_add_(denom, EPS)
+        update = torch._foreach_mul(m, step_size)
+        torch._foreach_div_(update, denom)
+        torch._foreach_sub_(params, update)

@@ -1,11 +1,12 @@
 """Train and eval steps (counterpart of ``mural_tpu/train/steps.py`` and
 the packed single step of ``mural_tpu/train/packed.py``).
 
-A train step: forward in train mode (BN batch statistics, dropout),
-masked CE-sum (the reference's ``CrossEntropyLoss(reduction='sum')``),
-backward, ``clip_grad_norm_(..., 10)``, the scheduled LR, then
-``optimizer.step()``.  torch's clip adds 1e-6 to the norm, optax's does
-not: when clipping fires the two scale the gradient about 1e-7 apart.
+A train step (:func:`step_update`): forward in train mode (BN batch
+statistics, dropout), masked CE-sum (the reference's
+``CrossEntropyLoss(reduction='sum')``), backward, ``clip_grad_norm_(...,
+10)``, then ``optimizer.step()`` at the LR the optimizer holds.  torch's
+clip adds 1e-6 to the norm, optax's does not: when clipping fires the two
+scale the gradient about 1e-7 apart.
 """
 
 from __future__ import annotations
@@ -59,25 +60,38 @@ class TrainState:
         return self.schedule.lr_at(self.step, self.epoch, self.rop_lr)
 
 
-def train_step(state: TrainState, y: torch.Tensor, cat: torch.Tensor,
-               distal: torch.Tensor, mask: torch.Tensor,
-               cont: Optional[torch.Tensor] = None
-               ) -> Tuple[torch.Tensor, float]:
-    """One optimizer step; returns (loss on the device, LR used)."""
+def step_update(state: TrainState, y: torch.Tensor, cat: torch.Tensor,
+                distal: torch.Tensor, mask: torch.Tensor,
+                cont: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Forward, backward, clip and the optimizer's update at the LR it
+    holds; returns the loss on the device.  No host sync and no host
+    counter: a CUDA graph captures this (``train/graphs.py``)."""
     model = state.model
     model.train()
-    lr = state.lr()
     loss = masked_ce_sum(model(cat, distal, cont), y, mask)
     # every parameter's gradient: a transfer's frozen ones count in the
     # clip norm although the optimizer holds only the trainable ones
     model.zero_grad(set_to_none=True)
     loss.backward()
     torch.nn.utils.clip_grad_norm_(model.parameters(), GRAD_CLIP)
+    state.optimizer.step()
+    return loss.detach()
+
+
+def train_step(state: TrainState, y: torch.Tensor, cat: torch.Tensor,
+               distal: torch.Tensor, mask: torch.Tensor,
+               cont: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, float]:
+    """One step of a ``torch.optim`` optimizer at the schedule's float LR,
+    the reference the tests and ``chip_smoke.py`` hold the loop's steps
+    (``train/graphs.py``) against; returns (loss on the device, LR
+    used)."""
+    lr = state.lr()
     for group in state.optimizer.param_groups:
         group["lr"] = lr
-    state.optimizer.step()
+    loss = step_update(state, y, cat, distal, mask, cont)
     state.step += 1
-    return loss.detach(), lr
+    return loss, lr
 
 
 @torch.no_grad()

@@ -18,6 +18,7 @@ from mural_tpu_torch.cli.mural_snv import main as port_cli
 from mural_tpu_torch.train import loop
 from mural_tpu_torch.train.optim import (LRSchedule, ReduceLROnPlateau,
                                          auto_weight_decay)
+from test_torch_port_indel_model import one_torch_thread  # noqa: F401
 
 # small SNVNet2 widths; CLI defaults otherwise
 CONFIG = dict(
@@ -120,14 +121,65 @@ def test_calibrate_prob_matches_jax(name):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--bf16"], 10),
-    (["--steps_per_dispatch", "8"], 10), (["--resident_data", "on"], 10),
-    (["--with_h5"], 4), (["--dp_devices", "2"], 10),
-    (["--profile_dir", "prof"], 10), (["--trial_ensemble", "auto"], 8)])
+    (["--bf16"], 10), (["--with_h5"], 4), (["--dp_devices", "2"], 10),
+    (["--trial_ensemble", "auto"], 8)])
 def test_cli_train_flags_not_ported_raise(flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         port_cli(["train", "--ref_genome", "seq.fa", "--train_data",
                   "sites.bed", *flag])
+
+
+@pytest.fixture(scope="module")
+def small_data(tmp_path_factory):
+    from test_torch_port_tracks import write_genome
+    base = tmp_path_factory.mktemp("port_train_flags")
+    return write_genome(base, np.random.default_rng(2), {"chr1": 20_000},
+                        150)
+
+
+@pytest.mark.parametrize("flag,field,value,line", [
+    (["--steps_per_dispatch", "4"], "steps_per_dispatch", 4,
+     "4 eager train steps per group"),
+    (["--resident_data", "on"], "resident", "on",
+     "device-resident data: train arena"),
+    (["--resident_data", "off", "--steps_per_dispatch", "1"], "resident",
+     "off", None),
+    (["--profile_dir", "prof"], "profile_dir", "prof",
+     "profiler trace written to prof")])
+def test_cli_train_runtime_flags_run(small_data, tmp_path, monkeypatch, flag,
+                                     field, value, line):
+    """``--steps_per_dispatch``, ``--resident_data`` and ``--profile_dir``
+    reach ``TrainOptions`` and train one epoch on the CPU; the trial log
+    says how the steps ran."""
+    import mural_tpu_torch.tune.runner as runner
+    fasta, bed = small_data
+    seen = []
+
+    def train_trial(config, opts, *a, **kw):
+        seen.append(opts)
+        return loop.train_trial(config, opts, *a, **kw)
+
+    monkeypatch.setattr(runner, "train_trial", train_trial)
+    monkeypatch.chdir(tmp_path)
+    assert port_cli([
+        "train", "--ref_genome", fasta, "--train_data", bed,
+        "--experiment_name", "t", "--n_trials", "1", "--epochs", "1",
+        "--cpu_only", "--batch_size", "32", "--CNN_out_channels", "8",
+        "--local_hidden1_size", "30", "--local_hidden2_size", "10",
+        "--valid_ratio", "0.2", "--split_seed", "0", "--segment_center",
+        "2000", *flag]) == 0
+    assert len(seen) == 1 and getattr(seen[0], field) == value
+    trial = next((tmp_path / "results" / "t").glob("Train_*"))
+    text = (trial / "training.log").read_text()
+    assert "Epoch 0 used time" in text
+    assert not (trial / "error.txt").exists()
+    if line is None:
+        assert "device-resident data" not in text
+        assert "train steps per" not in text
+    else:
+        assert line in text
+    if field == "profile_dir":
+        assert (tmp_path / "prof" / "train_epoch0.pt.trace.json").exists()
 
 
 @pytest.mark.parametrize("flag,field,value", [
