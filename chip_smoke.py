@@ -162,14 +162,42 @@ Phases (any failure raises and the script exits non-zero):
     (windows/s, busy share), and 16 steps of each with deterministic
     cuDNN within 1e-4; ``train --profile_dir`` on 2,000 sites writes a
     trace holding device events, K2 among them;
-14. a JSON line of the kernels (with ``launches_phase11``,
-    ``launches_phase12`` and ``launches_phase13``) and a timing line.
+15. mixed precision and trial ensembles: K2 and K3 in their bf16 mode
+    (the JAX kernels' ``split=False``; run beside phase 3, on the same
+    shapes and tables) against their plain bf16 versions, ``jstar`` and
+    ``pooled`` equal and dtable within phase 3's K3 tolerance, timed at
+    B=128 and 2048 beside the plain version, the bound (2-byte ``pooled``
+    and ``g``) and the library composition under a bf16 autocast; SNVNet2
+    at the CLI widths (B=128, dropout 0) on phase 10's 20,000 sites,
+    resident with 8-step graphs, float32 against ``--bf16``, fused and
+    unfused (windows/s, busy share, K2/K3 launches of each mode: the bf16
+    mode twice per step, replays included, in the bf16 fused run, the
+    float32 mode never), 64 fused steps of bf16 against float32
+    (deterministic cuDNN) within 2e-2 per step over the first 8 and in
+    the mean of each window of 8, the INDEL U-Net at its defaults
+    one resident epoch in each precision; ``mural_snv train --bf16
+    --fused_stem on --epochs 1`` (the bf16 mode twice per train step, the
+    float32 mode twice per validation batch) and ``mural_indel train
+    --bf16 --epochs 1`` (no launch) through the CLI: triple, finite
+    metrics; one ``--bf16`` epoch on 2,000 sites on each other train path
+    (host-fed eager and graphs, resident eager, SNVNet0, SNVNet1 fused,
+    SNVNet3 with track channels, a trial process, ``transfer`` from phase
+    1's triple); ``train --trial_ensemble auto --n_trials 4 --epochs 2`` on
+    the same sites in float32 and with ``--bf16`` (one group of 4, every
+    trial's files and finite metrics, no K2/K3 launch, the aggregate
+    windows/s against phase 13's serial unfused resident rate), and with
+    ``--use_ray --grace_period 1 --learning_rate 1e-4 1e-2`` (a member
+    stopped before the last epoch whose final weights are its last
+    checkpoint's);
+14. last, after phase 15: a JSON line of the kernels (with
+    ``launches_phase11``, ``launches_phase12``, ``launches_phase13``, the
+    bf16 mode's records with ``launches_phase15``) and a timing line.
 
 The last line of standard output is the device record
 ``{"ok": true, "device": {...}}``.  ``--only_kernels`` runs the setup
-(without the synthetic genome) and phases 2-3, prints the kernels' JSON
-line and exits 0 without the device record: a quick check of the
-kernels while they change.  Without a CUDA device, or without the
+(without the synthetic genome), phases 2-3 and phase 15's kernel checks,
+prints the kernels' JSON line and exits 0 without the device record: a
+quick check of the kernels while they change.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints
 no result.  Scratch files go to ``build/chip_smoke/`` beside this script
 and are removed at the end.
@@ -392,21 +420,22 @@ def stem_calls(B, k, C):
     return out
 
 
-def k2_bound(B, k, C):
-    """K2, both towers: codes, table and bias in; pooled f32 and uint8
-    jstar out; k tap and bias adds and one compare per conv output."""
+def k2_bound(B, k, C, elem=4):
+    """K2, both towers: codes, table and bias in; pooled (``elem`` bytes:
+    4, or 2 in the bf16 mode) and uint8 jstar out; k tap and bias adds
+    and one compare per conv output."""
     calls = stem_calls(B, k, C)
-    n_bytes = sum(B * L + B * C * P * 5 + (k * 16 * C + C) * 4
+    n_bytes = sum(B * L + B * C * P * (elem + 1) + (k * 16 * C + C) * 4
                   for B, L, _, _, P, _ in calls)
     return bound(n_bytes, sum(B * lv * C * (k + 1)
                               for B, _, _, _, _, lv in calls))
 
 
-def k3_bound(B, k, C):
-    """K3, both towers: codes, uint8 jstar and f32 g in; dtable out; k
-    adds per pooled output."""
+def k3_bound(B, k, C, elem=4):
+    """K3, both towers: codes, uint8 jstar and g (``elem`` bytes) in;
+    dtable out; k adds per pooled output."""
     calls = stem_calls(B, k, C)
-    n_bytes = sum(B * L + B * C * P * 5 + k * 16 * C * 4
+    n_bytes = sum(B * L + B * C * P * (elem + 1) + k * 16 * C * 4
                   for B, L, _, _, P, _ in calls)
     return bound(n_bytes, sum(B * C * P * k for B, _, _, _, P, _ in calls))
 
@@ -528,40 +557,46 @@ def time_k1(full, table, bias, k, C):
     return out
 
 
-def check_stem_case(name, codes, table, bias, pk, pp, gen):
+def check_stem_case(name, codes, table, bias, pk, pp, gen, bf16=False):
     """K2 and K3 against their plain versions on one stem call: K2 within
-    TOL_K2 with identical ``jstar``, K3 within TOL_K3_REL of max|dtable|
-    and bit-identical over two runs.  Returns (K2 error, K3 error, K3
-    relative error, g, jstar)."""
+    TOL_K2 (in the bf16 mode: equal) with identical ``jstar``, K3 within
+    TOL_K3_REL of max|dtable| and bit-identical over two runs.  Returns
+    (K2 error, K3 error, K3 relative error, g, jstar)."""
     import torch
     from mural_tpu_torch.ops import fused_train_stem as fts
     k = table.shape[0]
-    pooled, jstar = fts.code_conv_pool_forward(codes, table, bias, pk, pp)
-    ref, ref_j = fts.code_conv_pool_reference(codes, table, bias, pk, pp)
-    g = torch.randn(pooled.shape, generator=gen).to(codes.device)
-    dt = fts.code_conv_pool_backward(codes, jstar, g, k, pk, pp)
-    dt2 = fts.code_conv_pool_backward(codes, jstar, g, k, pk, pp)
+    pooled, jstar = fts.code_conv_pool_forward(codes, table, bias, pk, pp,
+                                               bf16)
+    ref, ref_j = fts.code_conv_pool_reference(codes, table, bias, pk, pp,
+                                              bf16)
+    g = torch.randn(pooled.shape, generator=gen).to(codes.device,
+                                                    pooled.dtype)
+    dt = fts.code_conv_pool_backward(codes, jstar, g, k, pk, pp, bf16)
+    dt2 = fts.code_conv_pool_backward(codes, jstar, g, k, pk, pp, bf16)
     ref_dt = fts.code_conv_pool_backward_reference(codes, ref_j, g, k, pk,
-                                                   pp)
+                                                   pp, bf16)
     torch.cuda.synchronize()
-    e2 = (pooled - ref).abs().max().item()
+    e2 = (pooled.float() - ref.float()).abs().max().item()
     same_j = torch.equal(jstar, ref_j)
     e3 = (dt - ref_dt).abs().max().item()
     r3 = e3 / ref_dt.abs().max().item()
     same_dt = torch.equal(dt, dt2)
-    log(f"K2 {name}: max |kernel - plain| = {e2:.3g}, jstar "
+    log(f"K2 {name}{' bf16 mode' if bf16 else ''}: max |kernel - plain| "
+        f"= {e2:.3g}, jstar "
         f"{'identical' if same_j else 'DIFFERS'}; K3: max |kernel - plain| "
         f"= {e3:.3g} ({r3:.3g} of max|dtable|), two runs "
         f"{'bit-identical' if same_dt else 'DIFFER'}")
-    if not (e2 <= TOL_K2 and same_j and r3 <= TOL_K3_REL and same_dt):
+    if not (e2 <= (0 if bf16 else TOL_K2) and same_j and r3 <= TOL_K3_REL
+            and same_dt):
         raise AssertionError(f"K2/K3 disagree with their plain versions on "
                              f"{name}")
     return e2, e3, r3, g, jstar
 
 
-def phase_k2_k3(model, dev, gen):
-    """K2 and K3 against their plain versions, and their timings beside
-    the library composition and the bounds."""
+def phase_k2_k3(model, dev, gen, bf16=False):
+    """K2 and K3 (in the float32 mode, or the bf16 mode) against their
+    plain versions, and their timings beside the library composition and
+    the bounds."""
     import torch
     tables = [folded_stem(model.conv1_2), folded_stem(model.conv1)]
     k, _, C = tables[0][0].shape
@@ -580,38 +615,42 @@ def phase_k2_k3(model, dev, gen):
         for (name, pk, pp), codes, (table, bias) in zip(STEMS, inputs,
                                                         tables):
             e2, e3, r3, g, jstar = check_stem_case(
-                f"{name} B={B}", codes, table, bias, pk, pp, gen)
+                f"{name} B={B}", codes, table, bias, pk, pp, gen, bf16)
             errs.append((e2, e3, r3))
             grads.append(g)
             jstars.append(jstar)
             if B != TRAIN_BATCH:
                 errs += [check_stem_case(f"{name} {what} B={B}", codes,
-                                         *tb, pk, pp, gen)[:3]
+                                         *tb, pk, pp, gen, bf16)[:3]
                          for what, tb in extra.items()]
         if B == 37:
             continue
-        timings[B] = time_stem(inputs, tables, grads, jstars, k)
-        log(f"K2/K3 one train step at B={B}: " + json.dumps(timings[B]))
+        timings[B] = time_stem(inputs, tables, grads, jstars, k, bf16)
+        log(f"K2/K3{' bf16 mode' if bf16 else ''} one train step at B={B}: "
+            + json.dumps(timings[B]))
     # a long row (L=2001) with tower 2's pool
     long_rows = torch.randint(0, 15, (TRAIN_BATCH, 2001), generator=gen,
                               dtype=torch.uint8).to(dev)
     _, pk, pp = STEMS[0]
     errs.append(check_stem_case(f"L=2001 pool {pk} B={TRAIN_BATCH}",
-                                long_rows, *tables[0], pk, pp, gen)[:3])
+                                long_rows, *tables[0], pk, pp, gen,
+                                bf16)[:3])
     err_k2, err_k3, rel_k3 = (max(e) for e in zip(*errs))
+    elem = 2 if bf16 else 4
     return {"max_abs_err_k2": err_k2, "max_abs_err_k3": err_k3,
             "max_rel_err_k3": rel_k3, "timings": timings,
-            "bound_k2": k2_bound(TRAIN_BATCH, k, C),
-            "bound_k3": k3_bound(TRAIN_BATCH, k, C),
-            "bound_k2_b2048": k2_bound(2048, k, C),
-            "bound_k3_b2048": k3_bound(2048, k, C)}
+            "bound_k2": k2_bound(TRAIN_BATCH, k, C, elem),
+            "bound_k3": k3_bound(TRAIN_BATCH, k, C, elem),
+            "bound_k2_b2048": k2_bound(2048, k, C, elem),
+            "bound_k3_b2048": k3_bound(2048, k, C, elem)}
 
 
-def time_stem(inputs, tables, grads, jstars, k):
+def time_stem(inputs, tables, grads, jstars, k, bf16=False):
     """Per train step (both towers): K2, K3, their plain versions and the
     library composition (conv on a prepared one-hot + max pool with
-    indices, and that composition's autograd backward), each as device
-    time (``*_ms``) and as the caller's time per call (``*_call_ms``)."""
+    indices, and that composition's autograd backward; in the bf16 mode
+    under a bfloat16 autocast), each as device time (``*_ms``) and as
+    the caller's time per call (``*_call_ms``)."""
     import torch
     import torch.nn.functional as F
     from mural_tpu_torch.ops import fused_train_stem as fts
@@ -620,38 +659,51 @@ def time_stem(inputs, tables, grads, jstars, k):
     def run(fn):
         return lambda: [fn(*c) for c in calls]
 
+    def autocast():
+        return torch.autocast("cuda", dtype=torch.bfloat16, enabled=bf16)
+
     lib = []
     for (_, pk, pp), codes, (table, bias), g, _ in calls:
         w = table.permute(2, 1, 0).contiguous().requires_grad_()
         b = bias.detach().clone().requires_grad_()
         oh = one_hot16(codes, k)
-        out, _ = F.max_pool1d(F.conv1d(oh, w, b), pk, pk, pp,
-                              return_indices=True)
-        ref, _ = fts.code_conv_pool_forward(codes, table, bias, pk, pp)
-        e = (out - ref).abs().max().item()
-        if not e <= TOL_LIBRARY:
+        with autocast():
+            out, _ = F.max_pool1d(F.conv1d(oh, w, b), pk, pk, pp,
+                                  return_indices=True)
+        ref, _ = fts.code_conv_pool_forward(codes, table, bias, pk, pp, bf16)
+        e = (out.float() - ref.float()).abs().max().item()
+        # bf16: the library rounds the one-hot's weight, the kernel the
+        # table; 4 bfloat16 steps of the output's scale
+        tol = 4 * 2.0 ** -8 * ref.float().abs().max().item() if bf16 \
+            else TOL_LIBRARY
+        if not e <= tol:
             raise AssertionError(f"library composition disagrees: {e}")
         lib.append((oh, w, b, out, g))
+
+    def library_forward():
+        with autocast():
+            return [F.max_pool1d(F.conv1d(oh, w, b), s[1], s[1], s[2],
+                                 return_indices=True)
+                    for (oh, w, b, _, _), s in zip(lib, STEMS)]
+
     fns = {
         "k2": run(lambda s, c, t, g, j: fts.code_conv_pool_forward(
-            c, t[0], t[1], s[1], s[2])),
+            c, t[0], t[1], s[1], s[2], bf16)),
         "k2_plain": run(lambda s, c, t, g, j: fts.code_conv_pool_reference(
-            c, t[0], t[1], s[1], s[2])),
-        "k2_library": lambda: [
-            F.max_pool1d(F.conv1d(oh, w, b), s[1], s[1], s[2],
-                         return_indices=True)
-            for (oh, w, b, _, _), s in zip(lib, STEMS)],
+            c, t[0], t[1], s[1], s[2], bf16)),
+        "k2_library": library_forward,
         "k3": run(lambda s, c, t, g, j: fts.code_conv_pool_backward(
-            c, j, g, k, s[1], s[2])),
+            c, j, g, k, s[1], s[2], bf16)),
         "k3_plain": run(
             lambda s, c, t, g, j: fts.code_conv_pool_backward_reference(
-                c, j, g, k, s[1], s[2])),
+                c, j, g, k, s[1], s[2], bf16)),
         "k3_library": lambda: [
             torch.autograd.grad(out, (w, b), g, retain_graph=True)
             for (_, w, b, out, g) in lib],
     }
     B = len(inputs[0])
-    out = {f"{name}_ms": device_ms(fn, what=f"{name} B={B}")
+    mode = " bf16" if bf16 else ""
+    out = {f"{name}_ms": device_ms(fn, what=f"{name}{mode} B={B}")
            for name, fn in fns.items()}
     out.update({f"{name}_call_ms": cuda_ms(fn) for name, fn in fns.items()})
     return out
@@ -2595,13 +2647,14 @@ def fed_epoch(feed, state, ds, res, fused, dev, rng, groups, limit=None):
 
 
 def fed_run(feed, fused, k, model, ds, res, dev, seed, epochs, limit=None,
-            profile=True):
+            profile=True, bf16=False):
     """``epochs`` epochs (of ``limit`` steps) of a fresh copy of ``model``
-    (Adam, StepLR2, the CLI's weight decay) fed one way: per-step losses,
-    final parameters, each epoch's seconds and windows/s, K2/K3 launches
-    counted from 0 (replays included), then with ``profile`` the device's
-    busy ms per step over ``PROFILED_STEPS`` more steps (torch.profiler)
-    against the last epoch's step ms."""
+    (Adam, StepLR2, the CLI's weight decay; ``bf16``: mixed precision)
+    fed one way: per-step losses, final parameters, each epoch's seconds
+    and windows/s, K2/K3 launches of each mode counted from 0 (replays
+    included), then with ``profile`` the device's busy ms per step over
+    ``PROFILED_STEPS`` more steps (torch.profiler) against the last
+    epoch's step ms."""
     import torch
     from mural_tpu_torch.ops import fused_train_stem as fts
     from mural_tpu_torch.train.graphs import StepGroups, host_fed_batch
@@ -2617,7 +2670,8 @@ def fed_run(feed, fused, k, model, ds, res, dev, seed, epochs, limit=None,
     state = TrainState(model, (build_optimizer if feed == "inline"
                                else GraphOptimizer)(
         "Adam", model.parameters(), wd),
-        LRSchedule.build("StepLR2", FED_LR, 0.9, B, ds.n_sites, 1e-4, 1e-6))
+        LRSchedule.build("StepLR2", FED_LR, 0.9, B, ds.n_sites, 1e-4, 1e-6),
+        bf16=bf16)
     groups = None
     if feed != "inline":
         groups = StepGroups(state, k, resident_batch(
@@ -2626,7 +2680,7 @@ def fed_run(feed, fused, k, model, ds, res, dev, seed, epochs, limit=None,
     rng = np.random.default_rng(seed)
     torch.manual_seed(seed)                # the dropout masks' stream
     out = {"losses": [], "epoch_s": [], "steps": []}
-    fts.FWD_LAUNCHES = fts.BWD_LAUNCHES = 0
+    fts.reset_launches()
     for _ in range(epochs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2637,7 +2691,7 @@ def fed_run(feed, fused, k, model, ds, res, dev, seed, epochs, limit=None,
         out["steps"].append(len(losses))
         out["losses"] += losses.tolist()
         state.epoch += 1
-    out["k2"], out["k3"] = fts.FWD_LAUNCHES, fts.BWD_LAUNCHES
+    out.update(fts.launch_counts())
     out["params"] = [p.detach().clone() for p in model.parameters()]
     out["windows_per_s"] = [n * B / s for n, s in zip(out["steps"],
                                                       out["epoch_s"])]
@@ -2832,8 +2886,339 @@ def phase_device_fed(work, fasta, family_bed, indel_bed, dev, seed):
             "indel_loss_rel_diff": irel, "profile_dir": profiled}
 
 
+# --- phase 15: mixed precision and trial ensembles -----------------------
+
+TOL_BF16 = 2e-2         # bf16 against float32 loss: the JAX package's band
+BF16_STEPS = 64         # steps of the bf16 against float32 comparison
+# the JAX package holds bf16 steps to float32 per step over 8 steps
+# (tests/test_bf16.py); over longer runs the two trajectories drift apart
+# per step (both packages, tests/test_torch_port_bf16.py), so the later
+# steps are held by the mean of each window of 8
+BF16_WINDOW = 8
+ENS_TRIALS = 4          # trials of each ensemble run
+ENS_EPOCHS = 2
+# (name, fused stem, bf16) of the timed SNVNet2 runs: resident, K steps
+# per replay, two epochs (the second times the replays alone)
+BF16_RUNS = (("f32_fused", True, False), ("bf16_fused", True, True),
+             ("f32_unfused", False, False), ("bf16_unfused", False, True))
+_ENS_RATE = re.compile(r"ensemble epoch (\d+): (\d+)/(\d+) members live, "
+                       r"train (\d+) steps in ([\d.]+)s \((\d+) windows/s")
+
+
+def phase_bf16_steps(ds, res, model, ids, ires, imodel, dev, seed):
+    """SNVNet2 at the CLI widths (dropout 0) resident with K-step graphs,
+    float32 against bf16, fused and unfused: windows/s, busy share and
+    the launches of each kernel mode; 64 steps of bf16 against float32
+    (deterministic cuDNN); the INDEL U-Net at its defaults, one resident
+    epoch float32 against bf16."""
+    runs = {name: fed_run("resident", fused, FED_K, model, ds, res, dev,
+                          seed, 2, bf16=bf16)
+            for name, fused, bf16 in BF16_RUNS}
+    keys = ("steps", "epoch_s", "windows_per_s", "step_ms",
+            "device_busy_ms", "device_busy_share", "k2", "k3", "k2_bf16",
+            "k3_bf16")
+    table = {name: {key: run[key] for key in keys}
+             for name, run in runs.items()}
+    log(f"bf16 train steps, SNVNet2 at B={TRAIN_BATCH} resident with "
+        f"{FED_K}-step graphs on {ds.n_sites} sites: " + json.dumps(table))
+    with deterministic_cudnn():
+        cmp = {bf16: fed_run("resident", True, FED_K, model, ds, res, dev,
+                             seed, 1, BF16_STEPS, profile=False,
+                             bf16=bf16)["losses"]
+               for bf16 in (False, True)}
+    rels = [abs(a - b) / abs(b) for a, b in zip(cmp[True], cmp[False])]
+    rel = max(rels)
+    w = BF16_WINDOW
+    windows = [abs(sum(cmp[True][i:i + w]) / sum(cmp[False][i:i + w]) - 1)
+               for i in range(0, len(rels), w)]
+    log(f"bf16 against float32, {BF16_STEPS} fused resident steps "
+        f"(deterministic cuDNN): max per-step loss rel diff {rel:.3g}, "
+        f"{max(rels[:w]):.3g} over the first {w}; mean of each {w}-step "
+        f"window: {[float(f'{x:.3g}') for x in windows]}")
+    indel = {name: fed_run("resident", False, 1, imodel, ids, ires, dev,
+                           seed, 1, bf16=bf16)
+             for name, bf16 in (("f32", False), ("bf16", True))}
+    itable = {name: {key: run[key] for key in keys[:6]}
+              for name, run in indel.items()}
+    log(f"bf16 train steps, INDEL U-Net at B={TRAIN_BATCH} resident on "
+        f"{ids.n_sites} sites (one epoch): " + json.dumps(itable))
+    steps = {name: sum(run["steps"]) for name, run in runs.items()}
+    check_all("bf16 train steps", {
+        "finite losses in every run": all(
+            np.isfinite(run["losses"]).all()
+            for run in (*runs.values(), *indel.values())),
+        f"bf16 within {TOL_BF16} of float32 per step over the first "
+        f"{BF16_WINDOW} steps": max(rels[:BF16_WINDOW]) <= TOL_BF16,
+        f"and in the mean of each {BF16_WINDOW}-step window of "
+        f"{BF16_STEPS}": len(rels) == BF16_STEPS
+        and max(windows) <= TOL_BF16,
+        "K2/K3 bf16 mode launched twice per step in the bf16 fused run "
+        "(replays included), the float32 mode never": (
+            runs["bf16_fused"]["k2_bf16"] == runs["bf16_fused"]["k3_bf16"]
+            == 2 * steps["bf16_fused"]
+            and runs["bf16_fused"]["k2"] == runs["bf16_fused"]["k3"] == 0),
+        "the float32 fused run launched the float32 mode only": (
+            runs["f32_fused"]["k2"] == runs["f32_fused"]["k3"]
+            == 2 * steps["f32_fused"]
+            and runs["f32_fused"]["k2_bf16"] == 0),
+        "no K2/K3 launch unfused": not any(
+            runs[name][k] for name in ("f32_unfused", "bf16_unfused")
+            for k in ("k2", "k3", "k2_bf16", "k3_bf16")),
+    })
+    return {"snv": table, "bf16_vs_f32_rel_diff": rel,
+            "bf16_vs_f32_window_rel_diff": windows, "indel": itable}
+
+
+def phase_bf16_cli(work, fasta, family_bed, indel_train_bed, cuda_id):
+    """``mural_snv train --bf16 --fused_stem on --epochs 1`` (the bf16
+    main path: K2/K3 in the bf16 mode per train step, K2 in the float32
+    mode per validation batch) and ``mural_indel train --bf16 --epochs
+    1`` through the CLI."""
+    from mural_tpu_torch.cli.mural_indel import main as indel_cli
+    from mural_tpu_torch.cli.mural_snv import main as snv_cli
+    from mural_tpu_torch.ops import fused_train_stem as fts
+    out = {}
+    for name, cli, bed, extra in (
+            ("snv", snv_cli, family_bed, ["--fused_stem", "on"]),
+            ("indel", indel_cli, indel_train_bed, ["--use_reverse"])):
+        fts.reset_launches()
+        run = cli_train(cli, work, fasta, bed, f"bf16_{name}", cuda_id,
+                        ["--bf16", "--epochs", "1", *extra])
+        counts = fts.launch_counts()
+        trial, epochs = run["trial"], run["epochs"]
+        steps = sum(e["train_steps"] for e in epochs)
+        vbatches = sum(e["valid_batches"] for e in epochs)
+        want = ({"k2": 2 * vbatches, "k3": 0, "k2_bf16": 2 * steps,
+                 "k3_bf16": 2 * steps} if name == "snv" else
+                dict.fromkeys(counts, 0))
+        check_all(f"{name} train --bf16", {
+            "exit code 0": run["rc"] == 0,
+            "the mixed-precision line": any(
+                "mixed precision: bfloat16" in line
+                for line in run["lines"]),
+            "one epoch logged": len(epochs) == 1,
+            "checkpoint_0 holds the triple": all(
+                (trial / "checkpoint_0" / f).exists()
+                for f in ("model", "model.config.pkl",
+                          "model.fdiri_cal.pkl")),
+            "finite loss, fdiri_loss and score": finite_metrics(trial, 0),
+            f"launches {want}": counts == want,
+        })
+        out[name] = {"seconds": run["seconds"], "epochs": epochs,
+                     **counts}
+        log(f"{name} train --bf16: {run['seconds']:.3f} s; launches "
+            f"{counts}; epochs " + json.dumps(epochs))
+    return out
+
+
+# (name, flags) of the one-epoch `--bf16` runs on every other train path
+BF16_PATHS = (
+    ("host_eager", ["--resident_data", "off", "--steps_per_dispatch", "1",
+                    "--fused_stem", "on"]),
+    ("host_graphs", ["--resident_data", "off", "--fused_stem", "on"]),
+    ("resident_eager", ["--steps_per_dispatch", "1"]),
+    ("m0", ["--model_no", "0"]),
+    ("m1_fused", ["--model_no", "1", "--fused_stem", "on"]),
+    ("m3_tracks", ["--model_no", "3", "--bw_paths", "TRACKS"]),
+    ("process", ["--trial_executor", "process", "--fused_stem", "on"]),
+    ("transfer", ["--fused_stem", "on"]))
+
+
+def phase_bf16_paths(work, fasta, family_bed, snv_model, cuda_id):
+    """One ``--bf16`` epoch through the CLI on every tenth site of phase
+    10's set (2,000) on each other train path: host-fed eager steps and
+    graphs, resident eager steps, SNVNet0, SNVNet1 fused, SNVNet3 with
+    track channels (phase 10's tracks), a trial process, and ``transfer``
+    from phase 1's triple: the mixed-precision line in the trial's log,
+    the triple, a finite loss, and in-process fused runs launching K2/K3
+    in the bf16 mode twice per train step."""
+    from mural_tpu_torch.cli.mural_snv import main as cli
+    from mural_tpu_torch.ops import fused_train_stem as fts
+    small = work / "bf16_paths.bed"
+    small.write_text("\n".join(
+        Path(family_bed).read_text().splitlines()[::10]) + "\n")
+    tracks = work / "tracks.txt"
+    out = {}
+    for name, flags in BF16_PATHS:
+        command = "train"
+        flags = [str(tracks) if a == "TRACKS" else a for a in flags]
+        if name == "transfer":
+            command = "transfer"
+            flags += ["--model_path", snv_model, "--model_config_path",
+                      snv_model + ".config.pkl"]
+        fts.reset_launches()
+        run = cli_train(cli, work, fasta, str(small), f"bf16_{name}",
+                        cuda_id, ["--bf16", "--epochs", "1", *flags],
+                        command)
+        counts = fts.launch_counts()
+        trial = run["trial"]
+        log_text = (trial / "training.log").read_text()
+        steps = sum(e["train_steps"] for e in run["epochs"])
+        checks = {
+            "exit code 0": run["rc"] == 0,
+            "no error.txt": not (trial / "error.txt").exists(),
+            "the mixed-precision line": "mixed precision: bfloat16"
+            in log_text,
+            "checkpoint_0 holds the triple": all(
+                (trial / "checkpoint_0" / f).exists()
+                for f in ("model", "model.config.pkl",
+                          "model.fdiri_cal.pkl")),
+            "finite loss": finite_metrics(trial, 0, ("loss",
+                                                     "fdiri_loss")),
+        }
+        if "--fused_stem" in flags and name != "process":
+            checks[f"K2/K3 bf16 mode twice per train step ({steps})"] = (
+                counts["k2_bf16"] == counts["k3_bf16"] == 2 * steps > 0)
+        check_all(f"train --bf16 ({name})", checks)
+        out[name] = {"seconds": run["seconds"], "epochs": run["epochs"],
+                     **counts}
+    log("train --bf16 on every path: " + json.dumps(
+        {k: {"seconds": v["seconds"], "k2_bf16": v["k2_bf16"]}
+         for k, v in out.items()}))
+    return out
+
+
+@contextlib.contextmanager
+def kept_ensembles():
+    """Keep every :class:`EnsembleState` that the runs in the block
+    create, to read the members' final weights afterwards."""
+    from mural_tpu_torch.train import ensemble
+    created = []
+    init = ensemble.EnsembleState.__init__
+
+    def record(self, *a, **kw):
+        init(self, *a, **kw)
+        created.append(self)
+
+    ensemble.EnsembleState.__init__ = record
+    try:
+        yield created
+    finally:
+        ensemble.EnsembleState.__init__ = init
+
+
+def phase_ensembles(work, fasta, family_bed, cuda_id, seed, serial_rate):
+    """``train --trial_ensemble auto --n_trials 4 --epochs 2`` on phase
+    10's sites at B=128, in float32 and with ``--bf16``: the group lines,
+    every trial's files, no K2/K3 launch, the aggregate windows/s against
+    the serial resident rate of phase 13; then ``--use_ray --grace_period
+    1`` over two learning rates: a member stopped before the last epoch
+    keeps the weights of its last checkpoint."""
+    import torch
+    from mural_tpu_torch.cli.mural_snv import main as cli
+    from mural_tpu_torch.ops import fused_train_stem as fts
+    out = {}
+    runs = (("f32", []), ("bf16", ["--bf16"]),
+            ("asha", ["--use_ray", "--grace_period", "1", "--learning_rate",
+                      "1e-4", "1e-2"]))
+    for name, extra in runs:
+        fts.reset_launches()
+        with watched_runner(seed), kept_ensembles() as created:
+            run = cli_train(cli, work, fasta, family_bed, f"ens_{name}",
+                            cuda_id, ["--trial_ensemble", "auto",
+                                      "--n_trials", str(ENS_TRIALS),
+                                      "--epochs", str(ENS_EPOCHS), *extra])
+        exp = work / "results" / f"ens_{name}"
+        trials = sorted(run["trials"])
+        rates = [m for m in map(_ENS_RATE.search, run["lines"]) if m]
+        last = {t: max((int(d.split("_")[1]) for d in os.listdir(exp / t)
+                        if d.startswith("checkpoint_")), default=-1)
+                for t in trials}
+        checks = {
+            "exit code 0": run["rc"] == 0,
+            f"one group of {ENS_TRIALS}": sum(
+                line.startswith(f"trial ensemble: {ENS_TRIALS} members")
+                for line in run["lines"]) == 1 and len(created) == 1,
+            "the shared arena line": any(
+                line.startswith("trial ensemble: shared train arena")
+                for line in run["lines"]),
+            f"{ENS_TRIALS} trial directories, each with its triple per "
+            "epoch run, progress.csv and training.log": len(trials)
+            == ENS_TRIALS and all(
+                (exp / t / "progress.csv").exists()
+                and (exp / t / "training.log").exists() and all(
+                    (exp / t / f"checkpoint_{e}" / f).exists()
+                    for e in range(last[t] + 1)
+                    for f in ("model", "model.config.pkl",
+                              "model.fdiri_cal.pkl"))
+                for t in trials),
+            "finite metrics in every checkpoint": all(
+                finite_metrics(exp / t, e) for t in trials
+                for e in range(last[t] + 1)),
+            "no K2/K3 launch": not any(fts.launch_counts().values()),
+        }
+        rec = {"seconds": run["seconds"], "last_epoch": last,
+               "windows_per_s": [int(m[6]) for m in rates],
+               "epoch_train_s": [float(m[5]) for m in rates]}
+        if name != "asha":
+            checks[f"{ENS_EPOCHS} epochs of every member"] = all(
+                v == ENS_EPOCHS - 1 for v in last.values())
+            rec["vs_serial"] = rec["windows_per_s"][-1] / serial_rate \
+                if rates else None
+        else:
+            ens = created[0] if created else None
+            stopped = [t for t in trials if last[t] < ENS_EPOCHS - 1]
+            same = []
+            for t in stopped:
+                member = ens.member_state_dict(
+                    sorted(trials, key=lambda d: d.rsplit("_", 1)[-1])
+                    .index(t))
+                saved = torch.load(exp / t / f"checkpoint_{last[t]}" /
+                                   "model")
+                same.append(all(torch.equal(v.cpu(), member[k].cpu())
+                                for k, v in saved.items()))
+            checks["a member stopped before the last epoch"] = bool(stopped)
+            checks["each stopped member's final weights are its last "
+                   "checkpoint's"] = bool(same) and all(same)
+            rec["stopped"] = stopped
+        check_all(f"train --trial_ensemble auto ({name})", checks)
+        log(f"trial ensemble {name}: " + json.dumps(rec))
+        out[name] = rec
+    return out
+
+
+def phase_mixed_ensembles(work, fasta, family_bed, indel_bed, snv_model,
+                          dev, seed, serial_rate):
+    """Phase 15: the bf16 mode of K2/K3 is checked with phases 2-3; here
+    the bf16 train steps, the CLI runs, ``--bf16`` on every train path
+    and the trial ensembles."""
+    import torch
+    from mural_tpu_torch.models.init import init_weights
+    from mural_tpu_torch.models.registry import build_model_from_config
+    from mural_tpu_torch.train.resident import make_resident
+    part_s = {}
+    t0 = time.perf_counter()
+    cfg = dict(CONFIG, emb_dropout=0.0, local_dropout=0.0,
+               distal_fc_dropout=0.0)
+    ds = fed_dataset(family_bed, fasta, cfg, "snv")
+    res = make_resident(ds, dev)
+    model = init_weights(build_model_from_config(cfg, 0, "snv"),
+                         torch.Generator().manual_seed(seed + 15))
+    ids = fed_dataset(indel_bed, fasta, dict(INDEL_CONFIG), "indel")
+    ires = make_resident(ids, dev)
+    imodel = indel_model(seed + 16)
+    imodel.out_fc[1].p = 0.0
+    steps = phase_bf16_steps(ds, res, model, ids, ires, imodel, dev, seed)
+    part_s["steps"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli = phase_bf16_cli(work, fasta, family_bed, indel_bed, dev.index or 0)
+    part_s["cli"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths = phase_bf16_paths(work, fasta, family_bed, snv_model,
+                             dev.index or 0)
+    part_s["paths"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ens = phase_ensembles(work, fasta, family_bed, dev.index or 0, seed,
+                          serial_rate)
+    part_s["ensembles"] = time.perf_counter() - t0
+    log("phase 15 seconds by part: " + json.dumps(part_s))
+    return {"part_s": part_s, "steps": steps, "cli": cli, "paths": paths,
+            "ensembles": ens}
+
+
 def kernel_records(k1, k23, k1_launches, train_on, family=None,
-                   later=None, genome=None, fed=None):
+                   later=None, genome=None, fed=None, k23_bf16=None,
+                   mixed=None):
     """The kernels' JSON records from phases 2-3; ``launches`` come from
     the main path's runs (None when it did not run): K1 from phase 6's
     fused predict, K2/K3 from phase 7's fused train (resident data, 8
@@ -2844,7 +3229,11 @@ def kernel_records(k1, k23, k1_launches, train_on, family=None,
     K1 on the transferred predict, K2/K3 on the SNV transfer and the ASHA
     search; all three on the INDEL transfer); ``launches_phase12``: K1 on
     each of phase 12's runs (``genome``); ``launches_phase13``: K2/K3 on
-    each of phase 13's SNV runs (``fed``)."""
+    each of phase 13's SNV runs (``fed``).  The bf16 mode of K2/K3 has
+    records of its own (``k23_bf16``, phase 3's checks and timings in that
+    mode); their ``launches`` come from phase 15's ``train --bf16
+    --fused_stem on`` (``mixed``), and ``launches_phase15`` from its step
+    runs."""
     p11 = None
     if later is not None:
         tr, ind = later["transfer"], later["indel_transfer"]["launches"]
@@ -2905,6 +3294,28 @@ def kernel_records(k1, k23, k1_launches, train_on, family=None,
         "launches_phase13": fed and {
             name: run["k3"] for name, run in fed["snv"].items()},
     }]
+    if k23_bf16 is not None:
+        b128 = k23_bf16["timings"][TRAIN_BATCH]
+        cli = mixed and mixed["cli"]["snv"]
+        steps = mixed and mixed["steps"]["snv"]
+        for kk, name, line in (("k2", "fwd", 339), ("k3", "bwd", 375)):
+            kernels.append({
+                "name": f"code_conv_pool_{name}_bf16", "route": "cuda",
+                "mode": "bf16 (the Pallas kernels' split=False)",
+                "source": "mural_tpu_torch/ops/csrc/code_conv_pool.cu",
+                "replaces": f"mural_tpu/ops/fused_train_stem.py:{line}",
+                "launches": cli and cli[f"{kk}_bf16"],
+                "max_abs_err": k23_bf16[f"max_abs_err_{kk}"],
+                "ms": b128[f"{kk}_ms"], "plain_ms": b128[f"{kk}_plain_ms"],
+                "bound_ms": k23_bf16[f"bound_{kk}"][0],
+                "bound_by": k23_bf16[f"bound_{kk}"][1],
+                "library_ms": b128[f"{kk}_library_ms"],
+                "call_ms": b128[f"{kk}_call_ms"], "per": per_step,
+                "bound_ms_b2048": k23_bf16[f"bound_{kk}_b2048"][0],
+                "at_b128": b128, "at_b2048": k23_bf16["timings"][2048],
+                "launches_phase15": steps and {
+                    run: rec[f"{kk}_bf16"] for run, rec in steps.items()},
+            })
     return kernels
 
 
@@ -2914,9 +3325,9 @@ def main(argv=None) -> int:
     ap.add_argument("--n_sites", type=int, default=200_000)
     ap.add_argument("--n_train", type=int, default=60_000)
     ap.add_argument("--only_kernels", action="store_true",
-                    help="setup and phases 2-3 only, then the kernels' "
-                         "JSON line; no device record (for iterating on "
-                         "the kernels)")
+                    help="setup, phases 2-3 and the bf16 mode's kernel "
+                         "checks only, then the kernels' JSON line; no "
+                         "device record (for iterating on the kernels)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2971,9 +3382,12 @@ def main(argv=None) -> int:
     # 2-3. kernels vs plain
     k1 = timed("k1", phase_k1, model.to(dev).eval(), dev, gen)
     k23 = timed("k2_k3", phase_k2_k3, model, dev, gen)
+    # 15 (kernels). K2/K3's bf16 mode against its plain version
+    k23_bf16 = timed("k2_k3_bf16", phase_k2_k3, model, dev, gen, True)
     if args.only_kernels:
         shutil.rmtree(work, ignore_errors=True)
-        log(json.dumps({"kernels": kernel_records(k1, k23, None, None)}))
+        log(json.dumps({"kernels": kernel_records(
+            k1, k23, None, None, k23_bf16=k23_bf16)}))
         log(json.dumps({"card": card, "build_s": t_build,
                         "phase_s": phase_s,
                         "timed_with_cuda_events": TIMED_WITH_EVENTS,
@@ -3007,14 +3421,21 @@ def main(argv=None) -> int:
     genome = timed("genome_wide", phase_genome_wide, work, fasta,
                    model_path, indel_path, dev, args.seed)
     # 13. the device-fed train loop (K2/K3 counted from 0 around each run)
-    fed = timed("device_fed", phase_device_fed, work, fasta,
-                write_family_bed(work, train_bed), indel_beds[1], dev,
-                args.seed)
+    family_bed = write_family_bed(work, train_bed)
+    fed = timed("device_fed", phase_device_fed, work, fasta, family_bed,
+                indel_beds[1], dev, args.seed)
+    # 15. mixed precision and trial ensembles (K2/K3 in both modes
+    # counted from 0 around each run); members run unfused, so phase 13's
+    # unfused resident graph rate is their serial yardstick
+    mixed = timed("mixed_ensembles", phase_mixed_ensembles, work, fasta,
+                  family_bed, indel_beds[1], model_path, dev, args.seed,
+                  fed["snv"]["resident_graphs_unfused"]["windows_per_s"][-1])
     shutil.rmtree(work, ignore_errors=True)
 
     # 14. results
     log(json.dumps({"kernels": kernel_records(
-        k1, k23, fused["launches"], train_on, family, later, genome, fed)}))
+        k1, k23, fused["launches"], train_on, family, later, genome, fed,
+        k23_bf16, mixed)}))
     log(json.dumps({
         "card": card, "build_s": t_build,
         "model_max_abs_err": model_err, **fwd_ms,
@@ -3035,6 +3456,8 @@ def main(argv=None) -> int:
         "transfer_search": later,
         "genome_wide": genome,
         "device_fed": fed,
+        "k2_k3_bf16": {k: v for k, v in k23_bf16.items() if k != "timings"},
+        "mixed_ensembles": mixed,
         "n_sites": args.n_sites, "n_train": args.n_train,
         "n_indel_sites": INDEL_SITES,
         "n_indel_train": INDEL_TRAIN, "batch": BATCH,

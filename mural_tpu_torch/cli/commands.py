@@ -67,7 +67,11 @@ def _learning_args(p, lr_default):
     g.add_argument("--cudnn_benchmark_false", default=False,
                    action="store_true", help=argparse.SUPPRESS)
     g.add_argument("--bf16", default=False, action="store_true",
-                   help="bfloat16 activations (not ported yet).")
+                   help="bfloat16 activations/compute in the train step "
+                        "(float32 parameters, optimizer, BatchNorm "
+                        "statistics and loss reduction; the fused stem in "
+                        "its single-pass bf16 mode). Loss trajectory "
+                        "within tolerance of float32.")
     g.add_argument("--steps_per_dispatch", type=int, metavar="INT",
                    default=None,
                    help="Train steps per replay of one captured CUDA "
@@ -129,8 +133,12 @@ def _scheduler_args(p, default_experiment):
                         "Default: thread.")
     g.add_argument("--trial_ensemble", type=str, metavar="MODE",
                    default="off", choices=["off", "auto"],
-                   help="Vmapped trial ensembles ('auto' is not ported "
-                        "yet). Default: off.")
+                   help="'auto' trains same-architecture trials as ONE "
+                        "vmapped group (torch.func) sharing one dataset "
+                        "encode and one device arena, with each trial's "
+                        "learning rate, weight decay and seed its own; "
+                        "trials needing different programs run "
+                        "normally. Default: off.")
     g.add_argument("--dp_devices", type=int, metavar="INT", default=1,
                    help="Data-parallel devices (only 1 is ported). "
                         "Default: 1.")

@@ -154,13 +154,35 @@ def _experiment(args, **extra):
         trial_executor=args.trial_executor, **extra)
 
 
+def _advise_indel_throughput(args, model_type: str) -> None:
+    """The JAX CLI's throughput note for INDEL (``mural_tpu/cli/
+    main.py:174-195``), with the same triggers; where that note gives
+    the TPU's speed-up of ``--bf16``, this one gives the factor that
+    ``chip_smoke.py`` phase 15 measured on the card (PERF.md): on the
+    H100 the U-Net's step takes the same device time in bf16, so
+    ``--bf16`` is no faster there.  Batches below 128 leave the card
+    underused.  The defaults stay the reference's (float32, batch
+    128)."""
+    if model_type != "indel":
+        return
+    hints = []
+    if not args.bf16:
+        hints.append("--bf16 (bf16 activations; f32 optimizer/BN stats/"
+                     "loss; losses track f32 closely) trained this model "
+                     "at 0.76-0.87x the float32 windows/s on an NVIDIA "
+                     "H100 80GB HBM3 at 700 W")
+    if args.batch_size and max(args.batch_size) < 128:
+        hints.append(f"batch_size {max(args.batch_size)} leaves the card "
+                     "half dispatch-bound; >=128 saturates it")
+    if hints:
+        print("Throughput note: " + "; ".join(hints) + ".")
+
+
 def cmd_train(args, model_type: str) -> int:
     from mural_tpu_torch.device import resolve_device
     from mural_tpu_torch.train.loop import check_ported
     from mural_tpu_torch.tune.runner import run_experiment
-    if args.trial_ensemble == "auto":
-        raise NotImplementedError("train --trial_ensemble auto is not "
-                                  "ported yet (ROADMAP.md item 8)")
+    _advise_indel_throughput(args, model_type)
     space = _build_space(args, model_type)
     opts = _train_opts(args, model_type)
     # fail before any trial starts: a trial's own error goes to its

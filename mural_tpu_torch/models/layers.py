@@ -121,7 +121,13 @@ def fused_stem_pool(conv1: nn.Sequential, codes: torch.Tensor,
     its running buffers follow torch's rule: ``0.9 * old + 0.1 * stat``
     with the unbiased variance, and ``num_batches_tracked`` counts up.
     So a fused-trained state_dict has the unfused one's keys and
-    meaning."""
+    meaning.
+
+    Under a bfloat16 autocast (``--bf16`` train steps) the stem runs the
+    kernels' single-pass bf16 mode and returns bfloat16; the fold runs
+    in float32 with autocast off, as the JAX package folds in float32
+    (``mural_tpu/models/layers.py:373-377``), and the kernel rounds the
+    finished table once."""
     bn, conv = conv1[0], conv1[1]
     pk, ps, pp = pool
     if ps != pk:
@@ -136,10 +142,19 @@ def fused_stem_pool(conv1: nn.Sequential, codes: torch.Tensor,
         use_mean, use_var = mean, var_b
     else:
         use_mean, use_var = bn.running_mean, bn.running_var
-    table, bias = fold_bn_conv_table(conv.weight, conv.bias, bn.weight,
-                                     bn.bias, use_mean.detach(),
-                                     use_var.detach(), bn.eps)
-    return code_conv_pool(codes, table, bias, pk, pp)
+    dev = codes.device.type
+    with torch.autocast(dev, enabled=False):
+        table, bias = fold_bn_conv_table(conv.weight, conv.bias, bn.weight,
+                                         bn.bias, use_mean.detach(),
+                                         use_var.detach(), bn.eps)
+    return code_conv_pool(codes, table, bias, pk, pp, bf16=autocast_bf16(dev))
+
+
+def autocast_bf16(device_type: str) -> bool:
+    """Whether a bfloat16 autocast is on for ``device_type`` (the
+    ``--bf16`` train step's mixed precision)."""
+    return (torch.is_autocast_enabled(device_type)
+            and torch.get_autocast_dtype(device_type) == torch.bfloat16)
 
 
 def tower_forward(x: torch.Tensor, conv1: nn.Module, RBs1: nn.Module,

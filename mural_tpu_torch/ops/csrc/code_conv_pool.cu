@@ -22,9 +22,18 @@
 // MXU; here blocks gather table rows from shared memory instead, in true
 // float32 and without a matrix product.
 //
-// Bound: bytes, for both.  K2 reads B*L code bytes and writes B*C*P*5
-// bytes (float32 pooled, uint8 jstar); K3 reads the codes and those
-// B*C*P*5 bytes of g and jstar and writes (k, 16, C) floats.  Their adds
+// Two modes, as the Pallas kernels' `split`: float32 (pooled and g
+// float32, the table exact) and bf16, the single-pass mode of --bf16
+// training (split=False): K2 rounds each table entry to bfloat16 (round
+// to nearest even) as it stages the table, sums the taps and adds the
+// float32 bias in float32, and stores pooled as bfloat16, the layer's
+// cast folded into the store; K3 reads a bfloat16 g (the gradient of a
+// bfloat16 output) and accumulates in float32.  Both kernels are
+// templates on the element type of pooled and g.
+//
+// Bound: bytes, for both.  K2 reads B*L code bytes and writes B*C*P*
+// (E+1) bytes (pooled of E = 4 or 2 bytes, uint8 jstar); K3 reads the
+// codes and those bytes of g and jstar and writes (k, 16, C) floats.  Their adds
 // are far below the card's float32 rate.  Three things hold them back
 // from that bound instead, and the design answers each:
 //
@@ -63,33 +72,53 @@
 // float atomics: slab columns have one owner thread, groups fold in
 // order, and the reduce sums partials in a fixed order (warp w takes
 // partials w, w + 32, ...; warp 0 adds the warp sums in order), so two
-// runs give bit-identical dtable.
+// runs give bit-identical dtable.  In the bf16 mode K2 rounds the same
+// table entries and runs the same sums as the plain version's bf16 mode,
+// so pooled (after the one rounding to bfloat16) and jstar are equal to
+// it, and K3 adds the same float32 values of g.
 //
 // Built with nvcc into a shared library with a plain C entry point and
 // loaded through ctypes (mural_tpu_torch/ops/fused_train_stem.py).
+
+#include <cuda_bf16.h>
 
 #include "stem.cuh"
 
 namespace {
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x) {
+  if constexpr (sizeof(T) == 2)
+    return __float2bfloat16_rn(x);
+  else
+    return x;
+}
+
 constexpr int kRedWarps = 32;          // warps per reduce block
 
 // Shared-memory layout of one block, in bytes; the same formula as
 // _smem_bytes in fused_train_stem.py (the launchers check that they agree).
-//   K2: table, bias | pooled tile (+4 floats of shift) | jstar tile (+16
+// E is the element size of pooled and g (4, or 2 in the bf16 mode).
+//   K2: table, bias | pooled tile (+16 bytes of shift) | jstar tile (+16
 //       bytes) | raw code spans | ext codes
 //   K3: groups slabs | g segments | jstar segments | raw code spans | ext
 struct Layout {
   long long out, js, raw, ext, total;  // offsets of the regions, size
   int seg_g, seg_j, raw_stride;        // K3 tile segment strides; code rows
   __host__ __device__ Layout(int k, int C, int R, int TP, int pk,
-                             int groups, bool backward) {
+                             int groups, bool backward, int E) {
+    const int per = 16 / E;            // elements per 16 bytes
     const long long slab = (long long)k * kCodes * C;
     const long long n = (long long)R * C * TP;
     const int n_ext = TP * pk + k - 1;
     raw_stride = (int)round_up(n_ext + 15, 16);
     if (backward) {
-      seg_g = (int)round_up(4 * TP + 15, 16);
+      seg_g = (int)round_up(E * TP + 15, 16);
       seg_j = (int)round_up(TP + 15, 16);
       out = 4 * groups * slab;
       js = out + (long long)R * C * seg_g;
@@ -97,7 +126,7 @@ struct Layout {
     } else {
       seg_g = seg_j = 0;
       out = 4 * (slab + round_up(C, 4));
-      js = out + 4 * round_up(n + 4, 4);
+      js = out + E * round_up(n + per, per);
       raw = js + round_up(n + 16, 16);
     }
     ext = raw + (long long)R * raw_stride;
@@ -165,18 +194,19 @@ struct CodeRows {
 // Block blockIdx.x = rb * n_pt + pt owns rows [rb*R, rb*R + R) and
 // windows [pt*TP, pt*TP + TP) (clipped to B and P); a thread owns V
 // channels of a run of W windows of one row.
-template <int V, int K>
+template <int V, int K, typename TOut>
 __global__ void __launch_bounds__(kMaxThreads) code_conv_pool_fwd_kernel(
     const uint8_t* __restrict__ codes, long long row_stride,
     const float* __restrict__ table, const float* __restrict__ bias,
-    float* __restrict__ pooled, uint8_t* __restrict__ jstar, int B, int L,
+    TOut* __restrict__ pooled, uint8_t* __restrict__ jstar, int B, int L,
     int k, int C, int pk, int pp, int P, int R, int TP, int W) {
+  constexpr int E = sizeof(TOut);
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay(k, C, R, TP, pk, 0, false);
+  const Layout lay(k, C, R, TP, pk, 0, false, E);
   const int slab_n = k * kCodes * C;
   float* s_table = reinterpret_cast<float*>(smem);
   float* s_bias = s_table + slab_n;
-  float* s_out = reinterpret_cast<float*>(smem + lay.out);
+  TOut* s_out = reinterpret_cast<TOut*>(smem + lay.out);
   uint8_t* s_js = smem + lay.js;
   uint8_t* s_ext = smem + lay.ext;
 
@@ -194,11 +224,14 @@ __global__ void __launch_bounds__(kMaxThreads) code_conv_pool_fwd_kernel(
                       n_ext, L);
   rows.load(smem + lay.raw, lay.raw_stride);
   const long long out0 = (long long)b0 * C * P;
-  const int sh_o = whole ? low4(pooled + out0) / 4 : 0;
+  const int sh_o = whole ? low4(pooled + out0) / E : 0;
   const int sh_j = whole ? low4(jstar + out0) : 0;
   cp_async_wait_all();
   __syncthreads();
   rows.to_ext(s_ext, smem + lay.raw, lay.raw_stride);
+  if constexpr (E == 2)                // the bf16 mode's rounded table
+    for (int i = threadIdx.x; i < slab_n; i += blockDim.x)
+      s_table[i] = __bfloat162float(__float2bfloat16_rn(s_table[i]));
   __syncthreads();
 
   const int CG = C / V;
@@ -247,7 +280,7 @@ __global__ void __launch_bounds__(kMaxThreads) code_conv_pool_fwd_kernel(
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         const int idx = (r * C + c + v) * TP + lp;
-        s_out[sh_o + idx] = best[v];
+        s_out[sh_o + idx] = from_float<TOut>(best[v]);
         s_js[sh_j + idx] = (uint8_t)bj[v];
       }
     }
@@ -273,14 +306,15 @@ __global__ void __launch_bounds__(kMaxThreads) code_conv_pool_fwd_kernel(
 // thread (grp, t) owns columns t, t + ct, ... of slab grp and walks
 // group grp's run of each piece's (row, window) pairs.  Writes the
 // block's (k, 16, C) partial.
-template <int K>
+template <int K, typename TG>
 __global__ void __launch_bounds__(kMaxThreads) code_conv_pool_bwd_kernel(
     const uint8_t* __restrict__ codes, long long row_stride,
-    const uint8_t* __restrict__ jstar, const float* __restrict__ g,
+    const uint8_t* __restrict__ jstar, const TG* __restrict__ g,
     float* __restrict__ partial, int B, int L, int k, int C, int pk,
     int pp, int P, int R, int TP, int groups) {
+  constexpr int E = sizeof(TG);
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay(k, C, R, TP, pk, groups, true);
+  const Layout lay(k, C, R, TP, pk, groups, true, E);
   const int slab_n = k * kCodes * C;
   float* s_part = reinterpret_cast<float*>(smem);
   unsigned char* s_g = smem + lay.out;
@@ -304,10 +338,11 @@ __global__ void __launch_bounds__(kMaxThreads) code_conv_pool_bwd_kernel(
     const int p0 = pt * TP, np = min(TP, P - p0);
     const long long in0 = (long long)b0 * C * P + p0;
     if (n_pt == 1) {                   // TP == P: (nr, C, P) in one run
-      load_cover(s_g, 0, gb + 4 * in0, 0, 1, 4 * nr * C * P);
+      load_cover(s_g, 0, gb + E * in0, 0, 1, E * nr * C * P);
       load_cover(s_js, 0, jstar + in0, 0, 1, nr * C * P);
     } else {                           // nr * C segments of np windows
-      load_cover(s_g, lay.seg_g, gb + 4 * in0, 4LL * P, nr * C, 4 * np);
+      load_cover(s_g, lay.seg_g, gb + E * in0, (long long)E * P, nr * C,
+                 E * np);
       load_cover(s_js, lay.seg_j, jstar + in0, P, nr * C, np);
     }
     const CodeRows rows(codes, row_stride, b0, nr, p0, pk,
@@ -326,8 +361,8 @@ __global__ void __launch_bounds__(kMaxThreads) code_conv_pool_bwd_kernel(
       // byte offsets of (row r, channel c)'s g and jstar windows
       auto g_at = [&](int r) {
         const long long e = in0 + ((long long)r * C + c) * P;
-        return n_pt == 1 ? low4(gb + 4 * in0) + 4 * (r * C + c) * P
-                         : (r * C + c) * lay.seg_g + low4(gb + 4 * e);
+        return n_pt == 1 ? low4(gb + E * in0) + E * (r * C + c) * P
+                         : (r * C + c) * lay.seg_g + low4(gb + E * e);
       };
       auto j_at = [&](int r) {
         const long long e = in0 + ((long long)r * C + c) * P;
@@ -339,7 +374,7 @@ __global__ void __launch_bounds__(kMaxThreads) code_conv_pool_bwd_kernel(
       float gv = 0.f;
       int js = 0;
       if (q0 < q1) {
-        gv = *reinterpret_cast<const float*>(s_g + go + 4 * lp);
+        gv = to_float(*reinterpret_cast<const TG*>(s_g + go + E * lp));
         js = s_js[jo + lp];
       }
       for (int q = q0; q < q1; ++q) {
@@ -353,7 +388,7 @@ __global__ void __launch_bounds__(kMaxThreads) code_conv_pool_bwd_kernel(
           jo = j_at(r);
         }
         if (q + 1 < q1) {
-          gv = *reinterpret_cast<const float*>(s_g + go + 4 * lp);
+          gv = to_float(*reinterpret_cast<const TG*>(s_g + go + E * lp));
           js = s_js[jo + lp];
         }
         if constexpr (K > 0) {
@@ -428,18 +463,72 @@ long long n_pieces(int B, int P, int R, int TP) {
   return (long long)((B + R - 1) / R) * ((P + TP - 1) / TP);
 }
 
-template <int V, int K>
+template <int V, int K, typename TOut>
 cudaError_t launch_fwd(const uint8_t* codes, long long row_stride,
-                       const float* table, const float* bias, float* pooled,
+                       const float* table, const float* bias, TOut* pooled,
                        uint8_t* jstar, int B, int L, int k, int C, int pk,
                        int pp, int P, int R, int TP, int W, int grid,
                        int threads, long long smem, cudaStream_t stream) {
-  const void* kernel = (const void*)code_conv_pool_fwd_kernel<V, K>;
+  const void* kernel = (const void*)code_conv_pool_fwd_kernel<V, K, TOut>;
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  code_conv_pool_fwd_kernel<V, K><<<grid, threads, smem, stream>>>(
+  code_conv_pool_fwd_kernel<V, K, TOut><<<grid, threads, smem, stream>>>(
       codes, row_stride, table, bias, pooled, jstar, B, L, k, C, pk, pp, P,
       R, TP, W);
+  return cudaGetLastError();
+}
+
+// K2 on pooled elements of type TOut: the channel vector width V and
+// the unrolled kernel size K for this call
+template <typename TOut>
+cudaError_t fwd_for(const uint8_t* codes, long long row_stride,
+                    const float* table, const float* bias, void* pooled,
+                    uint8_t* jstar, int B, int L, int k, int C, int pk,
+                    int pp, int P, int R, int TP, int W, int grid,
+                    int threads, long long smem, cudaStream_t stream) {
+  TOut* out = static_cast<TOut*>(pooled);
+  const bool vec = C % 4 == 0;
+  if (k == 3)
+    return vec ? launch_fwd<4, 3>(codes, row_stride, table, bias, out,
+                                  jstar, B, L, k, C, pk, pp, P, R, TP, W,
+                                  grid, threads, smem, stream)
+               : launch_fwd<1, 3>(codes, row_stride, table, bias, out,
+                                  jstar, B, L, k, C, pk, pp, P, R, TP, W,
+                                  grid, threads, smem, stream);
+  return vec ? launch_fwd<4, 0>(codes, row_stride, table, bias, out, jstar,
+                                B, L, k, C, pk, pp, P, R, TP, W, grid,
+                                threads, smem, stream)
+             : launch_fwd<1, 0>(codes, row_stride, table, bias, out, jstar,
+                                B, L, k, C, pk, pp, P, R, TP, W, grid,
+                                threads, smem, stream);
+}
+
+// K3 on g elements of type TG, then the fixed-order reduce
+template <typename TG>
+cudaError_t bwd_for(const uint8_t* codes, long long row_stride,
+                    const uint8_t* jstar, const void* g, float* partial,
+                    float* dtable, int B, int L, int k, int C, int pk,
+                    int pp, int P, int R, int TP, int groups, int threads,
+                    int grid, long long smem, cudaStream_t stream) {
+  const int n = k * kCodes * C;
+  const TG* gt = static_cast<const TG*>(g);
+  const void* kernel = k == 3
+                           ? (const void*)code_conv_pool_bwd_kernel<3, TG>
+                           : (const void*)code_conv_pool_bwd_kernel<0, TG>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  if (k == 3)
+    code_conv_pool_bwd_kernel<3, TG><<<grid, threads, smem, stream>>>(
+        codes, row_stride, jstar, gt, partial, B, L, k, C, pk, pp, P, R, TP,
+        groups);
+  else
+    code_conv_pool_bwd_kernel<0, TG><<<grid, threads, smem, stream>>>(
+        codes, row_stride, jstar, gt, partial, B, L, k, C, pk, pp, P, R, TP,
+        groups);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  reduce_partials_kernel<<<(n + 31) / 32, kRedWarps * 32, 0, stream>>>(
+      partial, dtable, grid, n);
   return cudaGetLastError();
 }
 
@@ -447,68 +536,51 @@ cudaError_t launch_fwd(const uint8_t* codes, long long row_stride,
 
 // codes: (B, L) uint8, row stride row_stride, unit column stride;
 // table: (k, 16, C) float32; bias: (C,) float32; pooled: (B, C, P)
-// float32 and jstar: (B, C, P) uint8, both contiguous.  (R, TP, W,
-// grid, threads, smem) is the launch plan (stem_launch_plan).  Launches
-// on `stream` and returns the launch status; it does not synchronise.
+// float32, or bfloat16 when bf16 != 0 (the single-pass mode), and
+// jstar: (B, C, P) uint8, both contiguous.  (R, TP, W, grid, threads,
+// smem) is the launch plan (stem_launch_plan).  Launches on `stream`
+// and returns the launch status; it does not synchronise.
 extern "C" cudaError_t code_conv_pool_fwd_launch(
     const uint8_t* codes, long long row_stride, const float* table,
-    const float* bias, float* pooled, uint8_t* jstar, int B, int L, int k,
+    const float* bias, void* pooled, uint8_t* jstar, int B, int L, int k,
     int C, int pk, int pp, int P, int R, int TP, int W, int grid,
-    int threads, long long smem, cudaStream_t stream) {
+    int threads, long long smem, int bf16, cudaStream_t stream) {
   if (B == 0 || P == 0) return cudaSuccess;
   if (pk > 255 || W < 1 || threads < 1 || threads > kMaxThreads)
     return cudaErrorInvalidValue;      // jstar is uint8
-  if (!plan_ok(B, P, R, TP, smem, Layout(k, C, R, TP, pk, 0, false))
+  const int E = bf16 ? 2 : 4;
+  if (!plan_ok(B, P, R, TP, smem, Layout(k, C, R, TP, pk, 0, false, E))
       || grid != n_pieces(B, P, R, TP))
     return cudaErrorInvalidValue;
-  const bool vec = C % 4 == 0;
-  if (k == 3)
-    return vec ? launch_fwd<4, 3>(codes, row_stride, table, bias, pooled,
-                                  jstar, B, L, k, C, pk, pp, P, R, TP, W,
-                                  grid, threads, smem, stream)
-               : launch_fwd<1, 3>(codes, row_stride, table, bias, pooled,
-                                  jstar, B, L, k, C, pk, pp, P, R, TP, W,
-                                  grid, threads, smem, stream);
-  return vec ? launch_fwd<4, 0>(codes, row_stride, table, bias, pooled,
-                                jstar, B, L, k, C, pk, pp, P, R, TP, W,
-                                grid, threads, smem, stream)
-             : launch_fwd<1, 0>(codes, row_stride, table, bias, pooled,
-                                jstar, B, L, k, C, pk, pp, P, R, TP, W,
-                                grid, threads, smem, stream);
+  return bf16 ? fwd_for<__nv_bfloat16>(codes, row_stride, table, bias,
+                                       pooled, jstar, B, L, k, C, pk, pp, P,
+                                       R, TP, W, grid, threads, smem, stream)
+              : fwd_for<float>(codes, row_stride, table, bias, pooled,
+                               jstar, B, L, k, C, pk, pp, P, R, TP, W, grid,
+                               threads, smem, stream);
 }
 
-// codes as above; jstar and g: (B, C, P) contiguous; partial: scratch of
-// grid * k*16*C float32; dtable: (k, 16, C) float32.  (R, TP, groups,
-// threads, grid, smem) is the launch plan; the pair runs, and so the
-// summation order, depend only on the plan and the shapes.
+// codes as above; jstar and g: (B, C, P) contiguous, g float32 or, when
+// bf16 != 0, bfloat16; partial: scratch of grid * k*16*C float32;
+// dtable: (k, 16, C) float32.  (R, TP, groups, threads, grid, smem) is
+// the launch plan; the pair runs, and so the summation order, depend
+// only on the plan and the shapes.
 extern "C" cudaError_t code_conv_pool_bwd_launch(
     const uint8_t* codes, long long row_stride, const uint8_t* jstar,
-    const float* g, float* partial, float* dtable, int B, int L, int k,
+    const void* g, float* partial, float* dtable, int B, int L, int k,
     int C, int pk, int pp, int P, int R, int TP, int groups, int threads,
-    int grid, long long smem, cudaStream_t stream) {
-  const int n = k * kCodes * C;
+    int grid, long long smem, int bf16, cudaStream_t stream) {
   if (B == 0 || P == 0 || groups < 1 || threads > kMaxThreads
       || threads % groups != 0)
     return cudaErrorInvalidValue;
-  const Layout lay(k, C, R, TP, pk, groups, true);
+  const Layout lay(k, C, R, TP, pk, groups, true, bf16 ? 2 : 4);
   if (!plan_ok(B, P, R, TP, smem, lay) || grid < 1
       || grid > n_pieces(B, P, R, TP))
     return cudaErrorInvalidValue;
-  const void* kernel = k == 3 ? (const void*)code_conv_pool_bwd_kernel<3>
-                              : (const void*)code_conv_pool_bwd_kernel<0>;
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  if (k == 3)
-    code_conv_pool_bwd_kernel<3><<<grid, threads, smem, stream>>>(
-        codes, row_stride, jstar, g, partial, B, L, k, C, pk, pp, P, R, TP,
-        groups);
-  else
-    code_conv_pool_bwd_kernel<0><<<grid, threads, smem, stream>>>(
-        codes, row_stride, jstar, g, partial, B, L, k, C, pk, pp, P, R, TP,
-        groups);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  reduce_partials_kernel<<<(n + 31) / 32, kRedWarps * 32, 0, stream>>>(
-      partial, dtable, grid, n);
-  return cudaGetLastError();
+  return bf16 ? bwd_for<__nv_bfloat16>(codes, row_stride, jstar, g, partial,
+                                       dtable, B, L, k, C, pk, pp, P, R, TP,
+                                       groups, threads, grid, smem, stream)
+              : bwd_for<float>(codes, row_stride, jstar, g, partial, dtable,
+                               B, L, k, C, pk, pp, P, R, TP, groups, threads,
+                               grid, smem, stream);
 }

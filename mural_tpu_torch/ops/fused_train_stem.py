@@ -24,6 +24,14 @@ PyTorch versions :func:`code_conv_pool_reference` and
 :func:`code_conv_pool_backward_reference` on CPU tensors.  ``jstar`` is
 ``uint8`` (``jstar < pk <= 255``) in both.  The output is channels-first
 ``(B, C, P)``, the layout of the port's towers.
+
+Two modes, the JAX op's ``split``: float32 (``bf16=False``, the table
+exact, ``pooled`` and its gradient float32) and the single-pass mode of
+``--bf16`` training (``bf16=True``, the JAX package's ``split=False``):
+the table rounded once to bfloat16, the taps summed and the bias added
+in float32, ``pooled`` stored as bfloat16 (the layer's cast), and the
+gradient arriving in bfloat16.  ``table`` and ``bias`` are float32
+inputs in both.  The launch counters count each mode apart.
 """
 
 from __future__ import annotations
@@ -48,24 +56,29 @@ from mural_tpu_torch.ops.fused_code_conv import (NCODES, SENTINEL,
 # CPU tensors do not count).  Callers reset them to 0 to count a run.  A
 # launch that a CUDA graph records counts at each replay of the graph
 # (:func:`captured_launches`, :func:`add_launches`), not at its capture.
-FWD_LAUNCHES = 0          # K2
-BWD_LAUNCHES = 0          # K3 (with its partial-sum reduce)
+FWD_LAUNCHES = 0          # K2, float32 mode
+BWD_LAUNCHES = 0          # K3 (with its partial-sum reduce), float32 mode
+FWD_BF16_LAUNCHES = 0     # K2, bf16 mode
+BWD_BF16_LAUNCHES = 0     # K3, bf16 mode
 _COUNT_LOCK = threading.Lock()
-# capture stream -> the [K2, K3] launches recorded on it so far; keyed by
-# stream, not thread, because autograd runs K3 on its own device thread
+# capture stream -> the [K2, K3] launches recorded on it so far, followed
+# by [K2, K3] of the bf16 mode once it records one; keyed by stream, not
+# thread, because autograd runs K3 on its own device thread
 _CAPTURED = {}
 
 LIBRARY = KernelLibrary("code_conv_pool", {
     # codes, row stride, table, bias, pooled, jstar, B, L, k, C, pk, pp,
-    # P, then the plan: rows, p_tile, windows, grid, threads, smem; stream
+    # P, then the plan: rows, p_tile, windows, grid, threads, smem; the
+    # mode (1: bf16); stream
     "code_conv_pool_fwd_launch": [PTR, I64, PTR, PTR, PTR, PTR, INT, INT,
                                   INT, INT, INT, INT, INT, INT, INT, INT,
-                                  INT, INT, I64, PTR],
+                                  INT, INT, I64, INT, PTR],
     # codes, row stride, jstar, g, partial, dtable, B, L, k, C, pk, pp, P,
-    # then the plan: rows, p_tile, groups, threads, grid, smem; stream
+    # then the plan: rows, p_tile, groups, threads, grid, smem; the mode;
+    # stream
     "code_conv_pool_bwd_launch": [PTR, I64, PTR, PTR, PTR, PTR, INT, INT,
                                   INT, INT, INT, INT, INT, INT, INT, INT,
-                                  INT, INT, I64, PTR],
+                                  INT, INT, I64, INT, PTR],
 })
 # pieces (blocks of K2) a call aims at when B is large: a few per SM
 TARGET_BLOCKS = 4 * NUM_SMS
@@ -108,9 +121,14 @@ def _ext_codes(codes: torch.Tensor, k: int, pp: int, P: int, pk: int):
 
 
 def code_conv_pool_reference(codes: torch.Tensor, table: torch.Tensor,
-                             bias: torch.Tensor, pk: int, pp: int):
+                             bias: torch.Tensor, pk: int, pp: int,
+                             bf16: bool = False):
     """Plain PyTorch version of K2: ``(pooled (B, C, P) float32, jstar
-    (B, C, P) uint8)``, after ``_reference_fwd`` of the JAX package."""
+    (B, C, P) uint8)``, after ``_reference_fwd`` of the JAX package.
+    ``bf16``: the table rounded to bfloat16 first, and pooled returned
+    as bfloat16."""
+    if bf16:
+        table = table.to(torch.bfloat16).float()
     k, _, C = table.shape
     B, L = codes.shape
     P = pool_out_len(L, pk, pp)
@@ -129,17 +147,21 @@ def code_conv_pool_reference(codes: torch.Tensor, table: torch.Tensor,
         upd = xw[:, :, j] > best                 # first max wins ties
         best = torch.where(upd, xw[:, :, j], best)
         best_j = torch.where(upd, j, best_j)
+    best = best.to(torch.bfloat16) if bf16 else best
     return (best.permute(0, 2, 1).contiguous(),
             best_j.permute(0, 2, 1).contiguous())
 
 
 def code_conv_pool_backward_reference(codes: torch.Tensor,
                                       jstar: torch.Tensor, g: torch.Tensor,
-                                      k: int, pk: int, pp: int
-                                      ) -> torch.Tensor:
+                                      k: int, pk: int, pp: int,
+                                      bf16: bool = False) -> torch.Tensor:
     """Plain PyTorch version of K3: ``dtable (k, 16, C)`` float32 from
     ``g (B, C, P)`` routed to the first-max positions ``jstar``, after
-    ``_reference_bwd`` of the JAX package."""
+    ``_reference_bwd`` of the JAX package.  ``bf16``: ``g`` rounded to
+    bfloat16 first (the gradient of the bf16 mode's output)."""
+    if bf16:
+        g = g.to(torch.bfloat16)
     B, C, P = g.shape
     ext = _ext_codes(codes, k, pp, P, pk)
     pos = (torch.arange(P, device=g.device) * pk)[None, None, :] \
@@ -160,19 +182,21 @@ def _check_pool(pk: int, pp: int):
                          f"0 <= pp <= pk/2, got pk={pk}, pp={pp}")
 
 
-def _smem_bytes(k, C, R, TP, pk, groups, backward) -> int:
+def _smem_bytes(k, C, R, TP, pk, groups, backward, elem=4) -> int:
     """Shared memory of one block (the ``Layout`` of code_conv_pool.cu).
-    K2: table and bias, the (R, C, TP) float32 and uint8 output tiles
+    K2: table and bias, the (R, C, TP) pooled and uint8 output tiles
     (each with room to shift by its misalignment); K3: the slabs and the
     g and jstar tiles as R*C segments with room for a 16-byte cover; both:
-    each row's raw code span and its ext codes."""
+    each row's raw code span and its ext codes.  ``elem``: the bytes of a
+    pooled or g element (4, or 2 in the bf16 mode)."""
     n, n_ext = R * C * TP, TP * pk + k - 1
     slab = k * NCODES * C
+    per = 16 // elem
     if backward:
-        head = 4 * groups * slab + R * C * (round_up(4 * TP + 15, 16)
+        head = 4 * groups * slab + R * C * (round_up(elem * TP + 15, 16)
                                             + round_up(TP + 15, 16))
     else:
-        head = (4 * (slab + round_up(C, 4)) + 4 * round_up(n + 4, 4)
+        head = (4 * (slab + round_up(C, 4)) + elem * round_up(n + per, per)
                 + round_up(n + 16, 16))
     return head + R * (round_up(n_ext + 15, 16) + n_ext)
 
@@ -211,11 +235,12 @@ class StemPlan:
 
 @functools.lru_cache(maxsize=256)
 def stem_launch_plan(B: int, L: int, k: int, C: int, pk: int, pp: int,
-                     backward: bool = False) -> StemPlan:
+                     backward: bool = False, elem: int = 4) -> StemPlan:
     """How K2 or K3 cuts one call over the card: whole rows per piece
     (``ceil(B / TARGET_BLOCKS)``, fewer where shared memory runs out),
     and P-tiles when the rows alone give fewer pieces than SMs or one row
-    does not fit."""
+    does not fit.  ``elem``: the bytes of a pooled or g element (2 in the
+    bf16 mode)."""
     _check_pool(pk, pp)
     P = max(pool_out_len(L, pk, pp), 0)
     vec = 4 if C % 4 == 0 else 1
@@ -231,7 +256,7 @@ def stem_launch_plan(B: int, L: int, k: int, C: int, pk: int, pp: int,
 
     def smem(R, TP):
         groups = bwd_shape(R, TP)[1] if backward else 0
-        return _smem_bytes(k, C, R, TP, pk, groups, backward)
+        return _smem_bytes(k, C, R, TP, pk, groups, backward, elem)
 
     if B <= 0 or P == 0:
         return StemPlan(B, P, 1, 1, 1, 0, 0, vec, 0, 1, 1, 0)
@@ -257,14 +282,18 @@ def stem_launch_plan(B: int, L: int, k: int, C: int, pk: int, pp: int,
                     G, smem(R, TP))
 
 
-def _fwd_kernel(codes, table, bias, pk, pp):
+def _dtype(bf16: bool):
+    return torch.bfloat16 if bf16 else torch.float32
+
+
+def _fwd_kernel(codes, table, bias, pk, pp, bf16):
     check_stem_args(codes, table, bias, "code_conv_pool")
     B, L = codes.shape
     k, _, C = table.shape
     P = pool_out_len(L, pk, pp)
-    pooled = torch.empty((B, C, P), dtype=torch.float32, device=codes.device)
+    pooled = torch.empty((B, C, P), dtype=_dtype(bf16), device=codes.device)
     jstar = torch.empty((B, C, P), dtype=torch.uint8, device=codes.device)
-    plan = stem_launch_plan(B, L, k, C, pk, pp)
+    plan = stem_launch_plan(B, L, k, C, pk, pp, elem=pooled.element_size())
     if plan.grid == 0:
         return pooled, jstar
     lib = LIBRARY.load()
@@ -274,17 +303,17 @@ def _fwd_kernel(codes, table, bias, pk, pp):
             codes.data_ptr(), codes.stride(0), table.data_ptr(),
             bias.data_ptr(), pooled.data_ptr(), jstar.data_ptr(), B, L, k,
             C, pk, pp, P, plan.rows, plan.p_tile, plan.windows, plan.grid,
-            plan.threads, plan.smem, stream)
+            plan.threads, plan.smem, int(bf16), stream)
     check_launch(err, f"code_conv_pool forward (B={B}, L={L}, k={k}, "
-                      f"C={C}, pk={pk})")
-    _count(stream, 1, 0)
+                      f"C={C}, pk={pk}, bf16={bf16})")
+    _count(stream, 1, 0, bf16)
     return pooled, jstar
 
 
-def _bwd_kernel(codes, jstar, g, k, pk, pp):
+def _bwd_kernel(codes, jstar, g, k, pk, pp, bf16):
     B, C, P = g.shape
     L = codes.shape[1]
-    if not (g.dtype == torch.float32 and g.is_contiguous()
+    if not (g.dtype == _dtype(bf16) and g.is_contiguous()
             and jstar.dtype == torch.uint8 and jstar.is_contiguous()
             and tuple(jstar.shape) == (B, C, P)
             and codes.dtype == torch.uint8 and codes.dim() == 2
@@ -292,10 +321,12 @@ def _bwd_kernel(codes, jstar, g, k, pk, pp):
             and P == pool_out_len(L, pk, pp)
             and g.device == codes.device == jstar.device):
         raise TypeError("code_conv_pool backward: need (B, L) uint8 codes "
-                        "with unit column stride, and contiguous float32 g "
-                        "and uint8 jstar of one (B, C, P) shape, P the "
-                        "pool's output length, all on one device")
-    plan = stem_launch_plan(B, L, k, C, pk, pp, backward=True)
+                        "with unit column stride, and contiguous g (float32,"
+                        " or bfloat16 in the bf16 mode) and uint8 jstar of "
+                        "one (B, C, P) shape, P the pool's output length, "
+                        "all on one device")
+    plan = stem_launch_plan(B, L, k, C, pk, pp, backward=True,
+                            elem=g.element_size())
     if plan.grid == 0:
         return torch.zeros((k, NCODES, C), dtype=torch.float32,
                            device=g.device)
@@ -309,38 +340,60 @@ def _bwd_kernel(codes, jstar, g, k, pk, pp):
             codes.data_ptr(), codes.stride(0), jstar.data_ptr(),
             g.data_ptr(), partial.data_ptr(), dtable.data_ptr(), B, L, k, C,
             pk, pp, P, plan.rows, plan.p_tile, plan.groups, plan.threads,
-            plan.grid, plan.smem, stream)
+            plan.grid, plan.smem, int(bf16), stream)
     check_launch(err, f"code_conv_pool backward (B={B}, L={L}, k={k}, "
-                      f"C={C}, pk={pk})")
-    _count(stream, 0, 1)
+                      f"C={C}, pk={pk}, bf16={bf16})")
+    _count(stream, 0, 1, bf16)
     return dtable
 
 
-def _count(stream: int, fwd: int, bwd: int) -> None:
-    """Count launches made on ``stream``: into its capture's tally while a
-    CUDA graph records the stream, else into the totals."""
+def _count(stream: int, fwd: int, bwd: int, bf16: bool = False) -> None:
+    """Count launches made on ``stream`` in one mode: into its capture's
+    tally while a CUDA graph records the stream, else into the totals."""
     tally = _CAPTURED.get(stream)
     if tally is None:
-        add_launches(fwd, bwd)
-    else:
-        tally[0] += fwd
-        tally[1] += bwd
+        add_launches(*((0, 0, fwd, bwd) if bf16 else (fwd, bwd)))
+        return
+    if bf16 and len(tally) == 2:
+        tally += [0, 0]
+    i = 2 if bf16 else 0
+    tally[i] += fwd
+    tally[i + 1] += bwd
 
 
-def add_launches(fwd: int, bwd: int) -> None:
-    """Add K2 and K3 launches to the totals (a graph's replay adds the
-    launches it recorded)."""
-    global FWD_LAUNCHES, BWD_LAUNCHES
+def add_launches(fwd: int, bwd: int, fwd_bf16: int = 0,
+                 bwd_bf16: int = 0) -> None:
+    """Add K2 and K3 launches of each mode to the totals (a graph's
+    replay adds the launches it recorded)."""
+    global FWD_LAUNCHES, BWD_LAUNCHES, FWD_BF16_LAUNCHES, BWD_BF16_LAUNCHES
     with _COUNT_LOCK:
         FWD_LAUNCHES += fwd
         BWD_LAUNCHES += bwd
+        FWD_BF16_LAUNCHES += fwd_bf16
+        BWD_BF16_LAUNCHES += bwd_bf16
+
+
+def reset_launches() -> None:
+    """Set every launch counter to 0."""
+    global FWD_LAUNCHES, BWD_LAUNCHES, FWD_BF16_LAUNCHES, BWD_BF16_LAUNCHES
+    with _COUNT_LOCK:
+        FWD_LAUNCHES = BWD_LAUNCHES = 0
+        FWD_BF16_LAUNCHES = BWD_BF16_LAUNCHES = 0
+
+
+def launch_counts() -> dict:
+    """The counters by kernel and mode."""
+    return {"k2": FWD_LAUNCHES, "k3": BWD_LAUNCHES,
+            "k2_bf16": FWD_BF16_LAUNCHES, "k3_bf16": BWD_BF16_LAUNCHES}
 
 
 @contextlib.contextmanager
 def captured_launches(stream: "torch.cuda.Stream"):
     """While a CUDA graph captures ``stream``, count its K2/K3 launches
-    into the yielded ``[fwd, bwd]`` list instead of the totals: a capture
-    runs nothing, and each replay adds the list (:func:`add_launches`)."""
+    into the yielded ``[fwd, bwd]`` list (``[fwd, bwd, fwd_bf16,
+    bwd_bf16]`` once a bf16-mode launch is recorded) instead of the
+    totals: a capture runs nothing, and each replay adds the list
+    (:func:`add_launches`)."""
     tally = [0, 0]
     _CAPTURED[stream.cuda_stream] = tally
     try:
@@ -349,55 +402,62 @@ def captured_launches(stream: "torch.cuda.Stream"):
         del _CAPTURED[stream.cuda_stream]
 
 
-def code_conv_pool_forward(codes, table, bias, pk: int, pp: int):
+def code_conv_pool_forward(codes, table, bias, pk: int, pp: int,
+                           bf16: bool = False):
     """``(pooled, jstar)``: K2 on a CUDA tensor, the plain version on a
     CPU tensor; any other device raises."""
     _check_pool(pk, pp)
     if codes.device.type == "cpu":
-        return code_conv_pool_reference(codes, table, bias, pk, pp)
+        return code_conv_pool_reference(codes, table, bias, pk, pp, bf16)
     if codes.device.type != "cuda":
         raise ValueError(f"code_conv_pool: unsupported device {codes.device}")
-    return _fwd_kernel(codes, table, bias, pk, pp)
+    return _fwd_kernel(codes, table, bias, pk, pp, bf16)
 
 
-def code_conv_pool_backward(codes, jstar, g, k: int, pk: int, pp: int):
+def code_conv_pool_backward(codes, jstar, g, k: int, pk: int, pp: int,
+                            bf16: bool = False):
     """``dtable``: K3 on a CUDA tensor, the plain version on a CPU
     tensor."""
     if g.device.type == "cpu":
-        return code_conv_pool_backward_reference(codes, jstar, g, k, pk, pp)
+        return code_conv_pool_backward_reference(codes, jstar, g, k, pk, pp,
+                                                 bf16)
     if g.device.type != "cuda":
         raise ValueError(f"code_conv_pool: unsupported device {g.device}")
-    return _bwd_kernel(codes, jstar, g, k, pk, pp)
+    return _bwd_kernel(codes, jstar, g, k, pk, pp, bf16)
 
 
 class CodeConvPool(torch.autograd.Function):
     """K2 forward, K3 backward; ``dbias = g.sum`` stays a torch
-    reduction, as the JAX package computes it outside its kernel."""
+    reduction (in float32), as the JAX package computes it outside its
+    kernel."""
 
     @staticmethod
-    def forward(ctx, codes, table, bias, pk: int, pp: int):
-        pooled, jstar = code_conv_pool_forward(codes, table, bias, pk, pp)
+    def forward(ctx, codes, table, bias, pk: int, pp: int, bf16: bool):
+        pooled, jstar = code_conv_pool_forward(codes, table, bias, pk, pp,
+                                               bf16)
         ctx.save_for_backward(codes, jstar)
-        ctx.k, ctx.pk, ctx.pp = table.shape[0], pk, pp
+        ctx.k, ctx.pk, ctx.pp, ctx.bf16 = table.shape[0], pk, pp, bf16
         return pooled
 
     @staticmethod
     def backward(ctx, g):
         codes, jstar = ctx.saved_tensors
-        g = g.contiguous()
+        g = g.to(_dtype(ctx.bf16)).contiguous()
         dtable = dbias = None
         if ctx.needs_input_grad[1]:
             dtable = code_conv_pool_backward(codes, jstar, g, ctx.k, ctx.pk,
-                                             ctx.pp)
+                                             ctx.pp, ctx.bf16)
         if ctx.needs_input_grad[2]:
-            dbias = g.sum((0, 2))
-        return None, dtable, dbias, None, None
+            dbias = g.float().sum((0, 2))
+        return None, dtable, dbias, None, None, None
 
 
 def code_conv_pool(codes: torch.Tensor, table: torch.Tensor,
-                   bias: torch.Tensor, pk: int, pp: int) -> torch.Tensor:
-    """codes (B, L) uint8 (row-strided views allowed), table (k, 16, C),
-    bias (C,) -> pooled (B, C, P) float32; differentiable in ``table``
-    and ``bias``.  ``pk``/``pp`` are the pool kernel (== stride) and
-    padding; the table's sentinel row 15 must be zero."""
-    return CodeConvPool.apply(codes, table, bias, pk, pp)
+                   bias: torch.Tensor, pk: int, pp: int,
+                   bf16: bool = False) -> torch.Tensor:
+    """codes (B, L) uint8 (row-strided views allowed), table (k, 16, C)
+    and bias (C,) float32 -> pooled (B, C, P), float32, or bfloat16 in
+    the single-pass mode (``bf16``); differentiable in ``table`` and
+    ``bias``.  ``pk``/``pp`` are the pool kernel (== stride) and padding;
+    the table's sentinel row 15 must be zero."""
+    return CodeConvPool.apply(codes, table, bias, pk, pp, bf16)

@@ -26,6 +26,11 @@ issues one replay where it issued every kernel of K steps.
   hold against K single steps of torch's optimizers.
 - The K2/K3 launches a capture records count at each replay
   (``ops/fused_train_stem.py captured_launches``).
+- The step is :func:`~mural_tpu_torch.train.steps.step_update` by
+  default; a trial ensemble passes its own
+  (``train/ensemble.py ensemble_step_update``), whose scalars hold a
+  row per member.  Under ``--bf16`` each step enters its bfloat16
+  autocast without the cast cache, so a capture records every cast.
 """
 
 from __future__ import annotations
@@ -74,13 +79,13 @@ def host_fed_batch(fused_stem: bool) -> Callable:
 
 
 def run_steps(state: TrainState, scalars: torch.Tensor, batch: Callable,
-              inputs: tuple) -> torch.Tensor:
+              inputs: tuple, step: Callable = step_update) -> torch.Tensor:
     """``len(scalars)`` train steps; ``batch(inputs, i)`` gives step i's
-    ``(y, cat, distal, mask, cont)``.  Returns the losses ``(k,)``."""
+    ``(y, cat, distal, mask, cont)``.  Returns the losses ``(k, ...)``."""
     losses = []
     for i in range(scalars.shape[0]):
         state.optimizer.scalars.copy_(scalars[i])
-        losses.append(step_update(state, *batch(inputs, i)))
+        losses.append(step(state, *batch(inputs, i)))
     return torch.stack(losses)
 
 
@@ -88,10 +93,12 @@ class StepGroups:
     """Train steps in groups of ``k`` for one trial: one CUDA graph replay
     per group on a CUDA device when ``k > 1``, else eager steps.
     ``batch(inputs, i)`` reads step i's batch from a group's ``inputs``, a
-    tuple of ``(k, ...)`` tensors (or None)."""
+    tuple of ``(k, ...)`` tensors (or None); ``step(state, *batch)`` runs
+    one step."""
 
-    def __init__(self, state: TrainState, k: int, batch: Callable):
-        self.state, self.k, self.batch = state, k, batch
+    def __init__(self, state: TrainState, k: int, batch: Callable,
+                 step: Callable = step_update):
+        self.state, self.k, self.batch, self.step = state, k, batch, step
         self.device = state.optimizer.scalars.device
         self.graph = None
         self.stream = None
@@ -108,7 +115,8 @@ class StepGroups:
         losses on the device and advances ``state.step``."""
         k = scalars.shape[0]
         if self.device.type != "cuda" or k != self.k or k == 1:
-            losses = run_steps(self.state, scalars, self.batch, inputs)
+            losses = run_steps(self.state, scalars, self.batch, inputs,
+                               self.step)
         else:
             with torch.cuda.device(self.device):
                 if self.graph is None:
@@ -123,7 +131,8 @@ class StepGroups:
         self.stream = torch.cuda.Stream(self.device)
         self.stream.wait_stream(current)
         with torch.cuda.stream(self.stream):
-            losses = run_steps(self.state, scalars, self.batch, inputs)
+            losses = run_steps(self.state, scalars, self.batch, inputs,
+                               self.step)
             self.static = tuple(None if t is None else t.clone()
                                 for t in inputs)
             self.static_scalars = scalars.clone()
@@ -135,7 +144,7 @@ class StepGroups:
                                      capture_error_mode="thread_local"):
                 self.static_losses = run_steps(
                     self.state, self.static_scalars, self.batch,
-                    self.static)
+                    self.static, self.step)
         except RuntimeError as e:
             raise RuntimeError(f"CUDA graph capture of {self.describe()} "
                                f"failed: {e}") from e

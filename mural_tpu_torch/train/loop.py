@@ -31,7 +31,9 @@ thread; the files it writes and their order are the same.  With
 the fused stem (CUDA kernels K2/K3 on the card, see
 :mod:`mural_tpu_torch.ops.fused_train_stem`) for the SNV models with
 towers and no distal track channels; ``'auto'`` resolves to off, as in
-the JAX package.
+the JAX package.  ``bf16`` runs every train step in mixed precision
+(``train/steps.py``; the fused stem in the kernels' bf16 mode); the
+validation, the epoch tail and the checkpoints stay float32.
 """
 
 from __future__ import annotations
@@ -107,6 +109,8 @@ class TrainOptions:
     dp_devices: int = 1
     # torch.profiler trace of epoch 0's train steps (forces K = 1)
     profile_dir: Optional[str] = None
+    # bfloat16 activations in the train steps (float32 parameters,
+    # optimizer, BatchNorm statistics and loss reduction)
     bf16: bool = False
     # train steps per CUDA graph replay; None -> 8 for SNV, 1 for INDEL
     steps_per_dispatch: Optional[int] = None
@@ -127,7 +131,6 @@ def check_ported(opts: TrainOptions, model_type: str = "snv") -> None:
     check_model_no(opts.model_no, model_type)
     not_ported = [
         (opts.with_h5, "--with_h5", 4),
-        (opts.bf16, "--bf16", 10),
         (opts.dp_devices > 1, "--dp_devices > 1", 10),
     ]
     for value, flag, item in not_ported:
@@ -231,9 +234,94 @@ def _check_classes(ds: SiteDataset, n_class: int, what: str) -> None:
             "--split_seed so the validation split samples them")
 
 
+def trial_config(config: Dict, opts: TrainOptions) -> Dict:
+    """A copy of a trial's config with the run's options added, as its
+    checkpoint pickle records them (training.py:170-177,246-255)."""
+    config = dict(config)
+    config["n_class"] = opts.n_class
+    config["model_no"] = opts.model_no
+    config["without_bw_distal"] = opts.without_bw_distal
+    config["seq_only"] = opts.seq_only
+    config["restart_lr"] = config.get("restart_lr", 1e-4)
+    config["min_lr"] = config.get("min_lr", 1e-6)
+    return config
+
+
 def _softmax(logits: np.ndarray) -> np.ndarray:
     e = np.exp(logits - logits.max(axis=1, keepdims=True))
     return e / e.sum(axis=1, keepdims=True)
+
+
+class EpochTail:
+    """The epoch tail of one trial: calibration, evaluation, losses,
+    checkpoint triple and metrics file, in the JAX package's order; it
+    keeps the trial's best validation loss for ``after_min_loss``.  The
+    serial loop and each member of a trial ensemble
+    (``tune/ensemble.py``) run one."""
+
+    def __init__(self, opts: TrainOptions, model_type: str,
+                 ds_valid: SiteDataset, train_size: int, total_params: int,
+                 printer):
+        self.opts, self.model_type = opts, model_type
+        self.data_local_valid = ds_valid.local_frame()
+        self.chr_pos_valid = ds_valid.position_frame()
+        self.train_size, self.valid_size = train_size, ds_valid.n_sites
+        self.total_params = total_params
+        self.printer = printer
+        self.min_loss, self.min_loss_epoch, self.after_min_loss = 0.0, 0, 0
+
+    def __call__(self, epoch: int, model: torch.nn.Module, config: Dict,
+                 valid_probs: np.ndarray, total_loss: float,
+                 valid_total_loss: float):
+        """Returns the metrics and the seconds the Evaluators took."""
+        opts, printer = self.opts, self.printer
+        local, n_class = self.data_local_valid, opts.n_class
+        train_size, valid_size = self.train_size, self.valid_size
+        fdiri_cal, fdiri_nll = calibrate_prob(
+            valid_probs, local["mut_type"], "FullDiri", printer=printer)
+        t_eval = time.time()
+        evs = [Evaluator(local, valid_probs, n_class, printer=printer),
+               Evaluator(local, fdiri_cal.predict_proba(valid_probs),
+                         n_class, calibra="FullDiri", printer=printer)]
+        if opts.poisson_calib:
+            evs.append(Evaluator(local, poisson_calibrate(valid_probs),
+                                 n_class, calibra="Poisson",
+                                 printer=printer))
+        kmer_list = [2, 4, 6] if self.model_type == "indel" else [3, 5, 7]
+        for ev in evs:
+            ev.evaluate_kmer(kmer_list)
+        eval_s = time.time() - t_eval
+        printer("Training Loss: ", total_loss / max(train_size, 1))
+        printer("Validation Loss: ", valid_total_loss / max(valid_size, 1))
+        printer("Validation Loss (after fdiri_cal): ", fdiri_nll)
+        t_eval = time.time()
+        for ev in evs:
+            ev.evaluate_regional_score(valid_size, kmer_list[:2])
+        save_path = os.path.join(opts.trial_dir, f"checkpoint_{epoch}",
+                                 "model")
+        os.makedirs(os.path.dirname(save_path), exist_ok=True)
+        evs[0].evaluate_regional_corr(
+            self.chr_pos_valid, save_valid_preds=opts.save_valid_preds,
+            save_path=save_path)
+        for ev in evs[1:]:
+            ev.evaluate_regional_corr(self.chr_pos_valid)
+        eval_s += time.time() - t_eval
+        save_checkpoint(save_path, model, config, fdiri_cal)
+        current_loss = valid_total_loss / max(valid_size, 1)
+        if epoch == 0 or current_loss < self.min_loss:
+            self.min_loss, self.min_loss_epoch = current_loss, epoch
+            self.after_min_loss = 0
+        else:
+            self.after_min_loss = epoch - self.min_loss_epoch
+        m = {"loss": current_loss, "fdiri_loss": fdiri_nll,
+             "after_min_loss": self.after_min_loss,
+             "score": evs[0].metrics.get("score", float("nan")),
+             "total_params": self.total_params, "epoch": epoch}
+        with open(os.path.join(opts.trial_dir, f"checkpoint_{epoch}",
+                               f"epoch_{epoch}_metrics.txt"), "w") as fh:
+            for k, v in m.items():
+                fh.write(f"{k}: {v}\n")
+        return m, eval_s
 
 
 def use_resident_data(opts: TrainOptions, ds_train: SiteDataset,
@@ -357,14 +445,7 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
     _check_classes(ds_valid, opts.n_class, "valid")
     printer("train_size, valid_size:", train_size, valid_size)
 
-    # --- config augmentation (training.py:170-177,246-255) ------------
-    config = dict(config)
-    config["n_class"] = opts.n_class
-    config["model_no"] = opts.model_no
-    config["without_bw_distal"] = opts.without_bw_distal
-    config["seq_only"] = opts.seq_only
-    config["restart_lr"] = config.get("restart_lr", 1e-4)
-    config["min_lr"] = config.get("min_lr", 1e-6)
+    config = trial_config(config, opts)
     transfer = bool(config.get("transfer_learning"))
     if not transfer:
         # a transfer keeps the checkpoint's
@@ -428,8 +509,12 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
                                  opts.profile_dir)
     state = TrainState(model, GraphOptimizer(
         config.get("optim", "Adam"), trainable, config["weight_decay"]),
-        schedule)
+        schedule, bf16=opts.bf16)
     B = config["batch_size"]
+    if opts.bf16:
+        printer("mixed precision: bfloat16 activations in the train steps "
+                "(float32 parameters, optimizer, BatchNorm statistics and "
+                "loss reduction)")
 
     resident = use_resident_data(opts, ds_train, ds_valid, B, printer)
     if resident:
@@ -455,7 +540,6 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
                        trace_func=printer)
     rop = (ReduceLROnPlateau(config["learning_rate"])
            if config.get("lr_scheduler") == "ROP" else None)
-    min_loss, min_loss_epoch, after_min_loss = 0.0, 0, 0
     metrics: Dict = {}
     host_rng = np.random.default_rng(opts.rng_seed)
 
@@ -509,62 +593,8 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
                         else np.zeros((0, opts.n_class), np.float32))
         return valid_logits, total, len(parts)
 
-    data_local_valid = ds_valid.local_frame()
-    chr_pos_valid = ds_valid.position_frame()
-
-    def epoch_tail(epoch, valid_probs, total_loss, valid_total_loss):
-        """Calibration, evaluation, losses, checkpoint triple and metrics
-        file, in the JAX package's order; returns the metrics and the
-        seconds the Evaluators took."""
-        nonlocal min_loss, min_loss_epoch, after_min_loss
-        fdiri_cal, fdiri_nll = calibrate_prob(
-            valid_probs, data_local_valid["mut_type"], "FullDiri",
-            printer=printer)
-        t_eval = time.time()
-        evs = [Evaluator(data_local_valid, valid_probs, opts.n_class,
-                         printer=printer),
-               Evaluator(data_local_valid,
-                         fdiri_cal.predict_proba(valid_probs), opts.n_class,
-                         calibra="FullDiri", printer=printer)]
-        if opts.poisson_calib:
-            evs.append(Evaluator(data_local_valid,
-                                 poisson_calibrate(valid_probs),
-                                 opts.n_class, calibra="Poisson",
-                                 printer=printer))
-        kmer_list = [2, 4, 6] if model_type == "indel" else [3, 5, 7]
-        for ev in evs:
-            ev.evaluate_kmer(kmer_list)
-        eval_s = time.time() - t_eval
-        printer("Training Loss: ", total_loss / max(train_size, 1))
-        printer("Validation Loss: ", valid_total_loss / max(valid_size, 1))
-        printer("Validation Loss (after fdiri_cal): ", fdiri_nll)
-        t_eval = time.time()
-        for ev in evs:
-            ev.evaluate_regional_score(valid_size, kmer_list[:2])
-        save_path = os.path.join(opts.trial_dir, f"checkpoint_{epoch}",
-                                 "model")
-        os.makedirs(os.path.dirname(save_path), exist_ok=True)
-        evs[0].evaluate_regional_corr(
-            chr_pos_valid, save_valid_preds=opts.save_valid_preds,
-            save_path=save_path)
-        for ev in evs[1:]:
-            ev.evaluate_regional_corr(chr_pos_valid)
-        eval_s += time.time() - t_eval
-        save_checkpoint(save_path, model, config, fdiri_cal)
-        current_loss = valid_total_loss / max(valid_size, 1)
-        if epoch == 0 or current_loss < min_loss:
-            min_loss, min_loss_epoch, after_min_loss = current_loss, epoch, 0
-        else:
-            after_min_loss = epoch - min_loss_epoch
-        m = {"loss": current_loss, "fdiri_loss": fdiri_nll,
-             "after_min_loss": after_min_loss,
-             "score": evs[0].metrics.get("score", float("nan")),
-             "total_params": total_params, "epoch": epoch}
-        with open(os.path.join(opts.trial_dir, f"checkpoint_{epoch}",
-                               f"epoch_{epoch}_metrics.txt"), "w") as fh:
-            for k, v in m.items():
-                fh.write(f"{k}: {v}\n")
-        return m, eval_s
+    epoch_tail = EpochTail(opts, model_type, ds_valid, train_size,
+                           total_params, printer)
 
     # the first epoch's rows; each later epoch's are drawn and uploaded
     # while the card runs the epoch before
@@ -605,8 +635,9 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
         valid_total_loss = float(vloss_dev)
         t_valid_done = time.time()
 
-        metrics, eval_s = epoch_tail(epoch, _softmax(valid_logits),
-                                     total_loss, valid_total_loss)
+        metrics, eval_s = epoch_tail(epoch, model, config,
+                                     _softmax(valid_logits), total_loss,
+                                     valid_total_loss)
         stop = report_fn is not None and report_fn(metrics) is False
         if stop:
             printer("Trial stopped by scheduler")

@@ -7,6 +7,18 @@ statistics, dropout), masked CE-sum (the reference's
 10)``, then ``optimizer.step()`` at the LR the optimizer holds.  torch's
 clip adds 1e-6 to the norm, optax's does not: when clipping fires the two
 scale the gradient about 1e-7 apart.
+
+With ``bf16`` (``--bf16``, the JAX package's ``steps.py:39-60`` and
+``packed.py:159-220``) the forward runs under a bfloat16
+``torch.autocast``: the parameters stay float32 masters that the
+autocast casts at use, so the gradients, the clip and the optimizer are
+float32; the activations of convolutions and linear layers are bfloat16;
+BatchNorm receives them and keeps float32 statistics and running
+buffers; the fused stem runs its single-pass bf16 mode; the loss
+reduction runs in float32.  Unlike the JAX package, which casts every
+parameter to bfloat16, the embeddings, the BatchNorm affine and the
+one-hot stay float32 (autocast leaves them), and the stem's table is
+folded from the float32 parameters.  Validation runs in float32.
 """
 
 from __future__ import annotations
@@ -25,7 +37,9 @@ def masked_ce_sum(logits: torch.Tensor, y: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
     """Sum over valid rows of -(log_softmax(logits)[y]); the model's
     log-probabilities are re-normalised as logits, as the reference's
-    CrossEntropyLoss does."""
+    CrossEntropyLoss does.  Reduces in float32 (at least) whatever the
+    logits' dtype."""
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     logz = torch.logsumexp(logits, dim=1)
     picked = logits.gather(1, y[:, None])[:, 0]
     return torch.sum((logz - picked) * mask)
@@ -45,19 +59,30 @@ def model_input(codes: torch.Tensor, fused_stem: bool,
 class TrainState:
     """Model, optimizer and the LR bookkeeping of
     ``mural_tpu/train/state.py``: the global optimizer-step counter, the
-    epoch counter and the ROP learning rate."""
+    epoch counter and the ROP learning rate; ``bf16`` selects the mixed
+    precision of the train steps."""
 
     def __init__(self, model: torch.nn.Module,
-                 optimizer: torch.optim.Optimizer, schedule: LRSchedule):
+                 optimizer: torch.optim.Optimizer, schedule: LRSchedule,
+                 bf16: bool = False):
         self.model = model
         self.optimizer = optimizer
         self.schedule = schedule
+        self.bf16 = bf16
         self.step = 0
         self.epoch = 0
         self.rop_lr = schedule.base_lr
 
     def lr(self) -> float:
         return self.schedule.lr_at(self.step, self.epoch, self.rop_lr)
+
+
+def mixed_precision(device: torch.device, bf16: bool):
+    """The train step's autocast: bfloat16 when ``bf16``, else off.  Its
+    cast cache is off, so that a CUDA graph captures every cast of a
+    parameter in each of its steps."""
+    return torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16,
+                          cache_enabled=False)
 
 
 def step_update(state: TrainState, y: torch.Tensor, cat: torch.Tensor,
@@ -68,7 +93,9 @@ def step_update(state: TrainState, y: torch.Tensor, cat: torch.Tensor,
     counter: a CUDA graph captures this (``train/graphs.py``)."""
     model = state.model
     model.train()
-    loss = masked_ce_sum(model(cat, distal, cont), y, mask)
+    with mixed_precision(y.device, state.bf16):
+        logits = model(cat, distal, cont)
+    loss = masked_ce_sum(logits, y, mask)
     # every parameter's gradient: a transfer's frozen ones count in the
     # clip norm although the optimizer holds only the trainable ones
     model.zero_grad(set_to_none=True)

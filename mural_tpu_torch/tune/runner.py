@@ -18,8 +18,11 @@ carries on; ``rerun_failed`` re-runs only the trials that have one, each
 from its own pickled config (the reference's ``resume='ERRORED_ONLY'``,
 run_train_raytune.py:233-236,314).  A trial whose validation loss has
 not improved for ``AFTER_MIN_LOSS_STOP`` epochs stops (``stop=
-{'after_min_loss': 3}``, :308), then the ASHA scheduler decides.  Trial
-ensembles (``ensemble='auto'``) are ROADMAP.md item 8's remaining part.
+{'after_min_loss': 3}``, :308), then the ASHA scheduler decides.  With
+``ensemble='auto'`` same-signature groups of two or more trials first
+train as vmapped ensembles (``tune/ensemble.py``), one group per device
+at a time; the groups that fall back and the other trials then run as
+above.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ class ExperimentOptions:
     seed: Optional[int] = None
     progress_interval: float = 30.0   # live table cadence (scheduler mode)
     trial_executor: str = "thread"    # 'thread' | 'process'
-    ensemble: str = "off"             # 'auto' is not ported yet
+    ensemble: str = "off"             # 'auto': vmapped trial ensembles
 
 
 class ProgressTable:
@@ -290,6 +293,78 @@ def _trials(space: Dict, exp: ExperimentOptions, exp_dir: str,
     return trials
 
 
+def _run_ensembles(trials, base_opts, model_type, exp, scheduler, progress,
+                   printer, devices, n_parallel, exp_dir) -> List:
+    """Train the same-signature groups of two or more eligible trials as
+    ensembles (``mural_tpu/tune/runner.py:329-395``): with ``n_parallel
+    > 1`` and several groups, one group per device in threads.  Returns
+    the trials left for the serial executors: the groups that fell back,
+    then the others."""
+    from mural_tpu_torch.tune.ensemble import (ensemble_eligible,
+                                               group_trials,
+                                               run_ensemble_group)
+    remaining: List = []
+    lock = threading.Lock()
+
+    def run_group(group, device):
+        opts = (dataclasses.replace(base_opts, device=device)
+                if device is not None else base_opts)
+        if progress is not None:
+            for tid, _ in group:
+                progress.update(tid, "RUNNING")
+        try:
+            if device is not None and torch.device(device).type == "cuda":
+                with torch.cuda.device(device):
+                    out = run_ensemble_group(group, opts, model_type, exp,
+                                             scheduler, progress, printer)
+            else:
+                out = run_ensemble_group(group, opts, model_type, exp,
+                                         scheduler, progress, printer)
+        except Exception as err:       # a failure of the whole group
+            text = traceback.format_exc()
+            out = []
+            for tid, _ in group:
+                _write_error(os.path.join(exp_dir, tid), text)
+                out.append((tid, None, err))
+        if out is None:                # fall back to serial trials
+            with lock:
+                remaining.extend(group)
+            return
+        for tid, metrics, err in out:
+            if progress is not None:
+                progress.update(tid, "ERROR" if err is not None
+                                else "TERMINATED")
+            if err is not None:
+                printer(f"Trial {tid} FAILED: {err}")
+            else:
+                printer(f"Trial {tid} finished: loss="
+                        f"{metrics.get('loss'):.6g}")
+
+    groups, singles = [], []
+    for group in group_trials(trials):
+        if len(group) >= 2 and ensemble_eligible(group[0][1], base_opts):
+            groups.append(group)
+        else:
+            singles.extend(group)
+    if n_parallel > 1 and len(groups) > 1:
+        sem = threading.Semaphore(n_parallel)
+
+        def guarded(i, group):
+            with sem:
+                run_group(group, devices[i % n_parallel])
+
+        threads = [threading.Thread(target=guarded, args=(i, g))
+                   for i, g in enumerate(groups)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+    else:
+        for group in groups:
+            run_group(group, None)
+    return remaining + singles
+
+
 def run_experiment(space: Dict, base_opts: TrainOptions, model_type: str,
                    exp: ExperimentOptions, printer: Callable = print,
                    devices: Optional[Sequence] = None) -> List:
@@ -297,9 +372,6 @@ def run_experiment(space: Dict, base_opts: TrainOptions, model_type: str,
     standalone mode).  Returns the sorted best-model list
     [(checkpoint_path, loss), ...].  ``devices`` overrides
     :func:`trial_devices` (tests spread threads over CPU "devices")."""
-    if exp.ensemble == "auto":
-        raise NotImplementedError("trial ensembles are not ported yet "
-                                  "(ROADMAP.md item 8)")
     exp_dir = os.path.join(exp.results_dir, exp.experiment_name)
     os.makedirs(exp_dir, exist_ok=True)
     rng = np.random.default_rng(exp.seed)
@@ -361,6 +433,11 @@ def run_experiment(space: Dict, base_opts: TrainOptions, model_type: str,
         else:
             printer(f"Trial {trial_id} finished: loss="
                     f"{out[1].get('loss'):.6g}")
+
+    if exp.ensemble == "auto" and len(trials) >= 2:
+        trials = _run_ensembles(trials, base_opts, model_type, exp,
+                                scheduler, progress, printer, devices,
+                                n_parallel, exp_dir)
 
     if n_parallel <= 1:
         for t in trials:

@@ -120,9 +120,11 @@ def test_calibrate_prob_matches_jax(name):
     assert out[-2:] == j_out[-2:]
 
 
+# ``--bf16`` and ``--trial_ensemble auto`` run now
+# (test_cli_train_runtime_flags_run); the cases keep their ids
 @pytest.mark.parametrize("flag,item", [
-    (["--bf16"], 10), (["--with_h5"], 4), (["--dp_devices", "2"], 10),
-    (["--trial_ensemble", "auto"], 8)])
+    pytest.param(["--with_h5"], 4, id="flag1-4"),
+    pytest.param(["--dp_devices", "2"], 10, id="flag2-10")])
 def test_cli_train_flags_not_ported_raise(flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
         port_cli(["train", "--ref_genome", "seq.fa", "--train_data",
@@ -145,12 +147,17 @@ def small_data(tmp_path_factory):
     (["--resident_data", "off", "--steps_per_dispatch", "1"], "resident",
      "off", None),
     (["--profile_dir", "prof"], "profile_dir", "prof",
-     "profiler trace written to prof")])
+     "profiler trace written to prof"),
+    (["--bf16", "--fused_stem", "on"], "bf16", True,
+     "mixed precision: bfloat16 activations"),
+    # one trial: no group to ensemble, so the trial runs serially
+    (["--trial_ensemble", "auto"], "resident", "auto",
+     "device-resident data: train arena")])
 def test_cli_train_runtime_flags_run(small_data, tmp_path, monkeypatch, flag,
                                      field, value, line):
-    """``--steps_per_dispatch``, ``--resident_data`` and ``--profile_dir``
-    reach ``TrainOptions`` and train one epoch on the CPU; the trial log
-    says how the steps ran."""
+    """``--steps_per_dispatch``, ``--resident_data``, ``--profile_dir``,
+    ``--bf16`` and ``--trial_ensemble`` reach the runner and train one
+    epoch on the CPU; the trial log says how the steps ran."""
     import mural_tpu_torch.tune.runner as runner
     fasta, bed = small_data
     seen = []
