@@ -119,8 +119,10 @@ Phases (any failure raises and the script exits non-zero):
     --fused_stem on`` in threads, its configs and trial ids drawn from
     ``--seed`` (four trials, each stopped where a replay of its losses
     through the scheduler says, at least one at a rung, the progress
-    table, ``best_models.txt``, K2/K3 twice per step and batch over all
-    trials; wall seconds and each trial's epochs); ``--n_parallel 2
+    table, ``best_models.txt``, K2/K3 twice per step and batch of every
+    epoch each trial trained, at most one past its last checkpoint (a
+    stop its overlapped tail reports may come after the next epoch
+    started); wall seconds and each trial's epochs); ``--n_parallel 2
     --n_trials 2 --epochs 1`` (one trial at a time on the one card);
     ``--rerun_failed`` after an ``error.txt`` planted in one of them
     (only that trial runs again); ``--trial_executor process --n_trials
@@ -189,9 +191,32 @@ Phases (any failure raises and the script exits non-zero):
     ``--use_ray --grace_period 1 --learning_rate 1e-4 1e-2`` (a member
     stopped before the last epoch whose final weights are its last
     checkpoint's);
-14. last, after phase 15: a JSON line of the kernels (with
-    ``launches_phase11``, ``launches_phase12``, ``launches_phase13``, the
-    bf16 mode's records with ``launches_phase15``) and a timing line.
+16. replicas, data-parallel ranks and the overlapped epoch tail on the
+    one card: ``train --dp_devices 2``, ``predict --n_devices 2`` and
+    ``predict_genome --n_devices 2`` refused with "requested 2 devices,
+    have 1"; ``sharded_predict`` with two replicas on the card against
+    one on phase 6's sites, fused and unfused (logits and loss within
+    1e-5, K1 twice per shard batch fused, sites/s of each), and
+    ``predict_genome --fused_inference`` of the 1 Mb chromosome with two
+    replicas against one (the same rows, probabilities within ``%.4g``);
+    two spawned gloo ranks on the card against one process, resident
+    with the fused stem and one eager step per batch, deterministic
+    cuDNN, on phase 10's 20,000 sites, at learning rate 1e-4: 32 SNVNet2
+    steps at the CLI widths (B=128, dropout 0; per-step loss within 1e-4
+    over the first 8, the 32-step mean within 5e-3, K2/K3 twice per step
+    on each rank) and 8 U-Net steps at its defaults (within 1e-4); the
+    same SNVNet2 steps at the CLI's 1e-3, whose drift is recorded; one
+    spawned NCCL rank with
+    8-step CUDA graphs, whose captured gradient all-reduce replays,
+    against the same graphs without a group (per-step loss within 1e-4,
+    windows/s and busy share of both); ``train --epochs 3 --fused_stem
+    on`` through the CLI (three triples, metrics files and
+    ``progress.csv`` rows; each epoch's seconds split into train, valid
+    and the snapshot fetch beside its tail's seconds on its thread);
+14. last, after phase 16: a JSON line of the kernels (with
+    ``launches_phase11``, ``launches_phase12``, ``launches_phase13``,
+    ``launches_phase16``, the bf16 mode's records with
+    ``launches_phase15``) and a timing line.
 
 The last line of standard output is the device record
 ``{"ok": true, "device": {...}}``.  ``--only_kernels`` runs the setup
@@ -1043,22 +1068,30 @@ def check_all(what, checks):
 
 _EPOCH_LINE = re.compile(
     r"Epoch (\d+) used time: ([\d.]+)s \(train (\d+) steps in ([\d.]+)s, "
-    r"valid (\d+) batches in ([\d.]+)s, calib/ckpt ([\d.]+)s, of which "
-    r"evaluation ([\d.]+)s\)")
+    r"valid (\d+) batches in ([\d.]+)s, fetch ([\d.]+)s; calib/eval/ckpt "
+    r"overlap the next epoch\)")
+_TAIL_LINE = re.compile(
+    r"Epoch (\d+) tail: ([\d.]+)s on its thread \(calibration, "
+    r"evaluation ([\d.]+)s, checkpoint\)")
 
 
 def trial_epochs(trial: Path):
-    """The per-epoch records of a trial's ``training.log``."""
+    """The per-epoch records of a trial's ``training.log``: the epoch
+    line's seconds (train, validation, the snapshot fetch) and the
+    epoch's tail, which runs on its thread while the next epoch trains
+    (``tail_s`` None for an epoch whose tail did not log)."""
+    text = (trial / "training.log").read_text()
+    tails = {int(m[0]): (float(m[1]), float(m[2]))
+             for m in _TAIL_LINE.findall(text)}
     epochs = [dict(zip(("epoch", "epoch_s", "train_steps", "train_s",
-                        "valid_batches", "valid_s", "calib_ckpt_s",
-                        "evaluation_s"),
+                        "valid_batches", "valid_s", "fetch_s"),
                        (int(m[0]), float(m[1]), int(m[2]), float(m[3]),
-                        int(m[4]), float(m[5]), float(m[6]), float(m[7]))))
-              for m in _EPOCH_LINE.findall(
-                  (trial / "training.log").read_text())]
+                        int(m[4]), float(m[5]), float(m[6]))))
+              for m in _EPOCH_LINE.findall(text)]
     for e in epochs:
         e["train_windows_per_s"] = e["train_steps"] * TRAIN_BATCH \
             / e["train_s"]
+        e["tail_s"], e["evaluation_s"] = tails.get(e["epoch"], (None, None))
     return epochs
 
 
@@ -2200,11 +2233,18 @@ def phase_search(work, fasta, search_bed, cuda_id, seed):
     trials = run["trials"]
     # a trial's last epoch logs no epoch line when EarlyStopping (its
     # patience is the grace period) ends it: count the epochs by their
-    # metrics files, each with the steps and batches of the first
+    # metrics files.  The epoch tail runs on a thread while the next
+    # epoch trains, so a stop that it reports may come after that epoch
+    # started, which then trains and validates without a checkpoint:
+    # count the epochs trained by the log's learning-rate lines, each
+    # with the steps and batches of the first
     ran = {name: len([d for d in os.listdir(exp / name)
                       if d.startswith("checkpoint_")]) for name in trials}
-    steps = sum(ran[t] * e[0]["train_steps"] for t, e in trials.items())
-    vbatches = sum(ran[t] * e[0]["valid_batches"]
+    trained = {name: (exp / name / "training.log").read_text().count(
+        "optimizer learning rate:") for name in trials}
+    steps = sum(trained[t] * e[0]["train_steps"]
+                for t, e in trials.items())
+    vbatches = sum(trained[t] * e[0]["valid_batches"]
                    for t, e in trials.items())
     # the stops these losses owe the runner's rules, replayed in launch
     # order (the trials ran one after another): after_min_loss, then
@@ -2236,6 +2276,8 @@ def phase_search(work, fasta, search_bed, cuda_id, seed):
         "ASHA, EarlyStopping)":
             ran == want,
         "at least one trial stopped at a rung": bool(rung_stops),
+        "no trial trained more than one epoch past its last checkpoint":
+            all(0 <= trained[t] - ran[t] <= 1 for t in trials),
         "the progress table printed with every trial": len(
             {row.split()[1] for row in table}) == SEARCH_TRIALS,
         f"best_models.txt lists {SEARCH_TRIALS} checkpoints":
@@ -2246,7 +2288,9 @@ def phase_search(work, fasta, search_bed, cuda_id, seed):
     })
     out["asha"] = {"seconds": run["seconds"], "k2": run["k2"],
                    "k3": run["k3"], "trials": {
-                       name: {"epochs": ran[name], "stopped_at_rung":
+                       name: {"epochs": ran[name],
+                              "epochs_trained": trained[name],
+                              "stopped_at_rung":
                               rung_stops.get(name),
                               "learning_rate": saved_config(
                                   exp / name / "checkpoint_0" / "model"
@@ -3216,9 +3260,346 @@ def phase_mixed_ensembles(work, fasta, family_bed, indel_bed, snv_model,
             "ensembles": ens}
 
 
+DP_STEPS = 32           # train steps of phase 16's two-rank checks
+DP_INDEL_STEPS = 8      # of which the U-Net's
+# the learning rate of the two-rank comparisons: at the CLI's 1e-3 the
+# float32 trajectories of two ranks and of one process part chaotically
+# (a pool's argmax or an Adam step's sign flips on a rounding), past 1e-4
+# by the 7th step on the CPU and on the card, with Adam or SGD; at 1e-4
+# they stay within 4e-6 over 32 steps (the CPU rehearsal), as
+# tests/test_torch_port_train_trial.py holds its epochs at 1e-4.  The
+# CLI rate's drift is recorded, not checked
+DP_LR = 1e-4
+DP_GRAPH_STEPS = 64     # steps of each one-rank NCCL graph run (8 replays)
+TOL_DP_MEAN = 5e-3      # the mean of 32 steps' losses, two ranks vs one
+TOL_SHARDED = 1e-5      # sharded logits and loss against one replica
+TAIL_EPOCHS = 3         # epochs of the overlapped-tail CLI run
+
+
+def dp_steps(ctx, fasta, bed, model_type, n_steps, k, seed,
+             busy_steps=0, device="cuda:0", lr=FED_LR):
+    """``n_steps`` resident train steps (the fused stem for SNV) at the
+    CLI widths, dropout 0, Adam and StepLR2 from ``lr``, in groups of
+    ``k`` (a CUDA
+    graph per group when ``k`` > 1), with deterministic cuDNN, on one
+    rank ``ctx`` of a data-parallel group (its rows of each batch, the
+    cross-rank BN when the group has two ranks, the gradients summed) or
+    alone on ``device`` (``ctx`` None): global per-step losses, the steps' seconds after
+    the first group, this process's K2/K3 launches, and with
+    ``busy_steps`` the device's busy ms per step over that many more
+    steps.  Runs in the ranks that ``spawn_ranks`` starts."""
+    import torch
+    from mural_tpu_torch.device import to_device
+    from mural_tpu_torch.models.init import init_weights
+    from mural_tpu_torch.models.registry import build_model_from_config
+    from mural_tpu_torch.ops import fused_train_stem as fts
+    from mural_tpu_torch.parallel.sync_bn import convert_batchnorm
+    from mural_tpu_torch.train.graphs import StepGroups, epoch_scalars
+    from mural_tpu_torch.train.optim import (GraphOptimizer, LRSchedule,
+                                             auto_weight_decay)
+    from mural_tpu_torch.train.resident import (make_resident,
+                                                resident_batch,
+                                                resident_epoch,
+                                                stack_epoch_rows,
+                                                upload_rows)
+    from mural_tpu_torch.train.steps import TrainState
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(ctx.device if ctx is not None else device)
+    snv = model_type == "snv"
+    cfg = (dict(CONFIG, emb_dropout=0.0, local_dropout=0.0,
+                distal_fc_dropout=0.0) if snv else dict(INDEL_CONFIG))
+    ds = fed_dataset(bed, fasta, cfg, model_type)
+    res = make_resident(ds, dev)
+    model = init_weights(build_model_from_config(cfg, 0, model_type),
+                         torch.Generator().manual_seed(seed + 16))
+    if not snv:
+        model.out_fc[1].p = 0.0
+    model = model.to(dev)
+    if ctx is not None and ctx.world > 1:
+        convert_batchnorm(model)
+    B = TRAIN_BATCH
+    wd = auto_weight_decay(0.1, B, 2, ds.n_sites, 1e-5)
+    state = TrainState(model, GraphOptimizer("Adam", model.parameters(), wd),
+                       LRSchedule.build("StepLR2", lr, 0.9, B, ds.n_sites,
+                                        1e-4, 1e-6))
+    cols = slice(None)
+    if ctx is not None:
+        state.grad_reduce = ctx.reduce_grads
+        cols = ctx.shard(B)
+    groups = StepGroups(state, k, resident_batch(
+        res, snv, torch.ones(B if ctx is None else B // ctx.world,
+                             device=dev)))
+    rows_np, _, _ = stack_epoch_rows(ds, FED_SEGMENTS, B, True,
+                                     np.random.default_rng(seed))
+    rows = upload_rows(np.ascontiguousarray(rows_np[:n_steps, cols]), dev)
+    scalars = to_device(epoch_scalars(state, n_steps), dev)
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    fts.reset_launches()
+    with deterministic_cudnn():
+        first = resident_epoch(groups, rows[:k], scalars[:k])
+        sync()
+        t0 = time.perf_counter()
+        rest = resident_epoch(groups, rows[k:], scalars[k:])
+        sync()
+        seconds = time.perf_counter() - t0
+    launches = fts.launch_counts()
+    losses = torch.cat([first, rest])
+    if ctx is not None:
+        ctx.all_reduce_(losses)
+    out = {"losses": losses.tolist(), "steps_s": seconds,
+           "timed_steps": n_steps - k,
+           "windows_per_s": (n_steps - k) * B / seconds,
+           "k2": launches["k2"], "k3": launches["k3"]}
+    if busy_steps:
+        more = upload_rows(np.ascontiguousarray(
+            rows_np[n_steps:n_steps + busy_steps, cols]), dev)
+        more_scalars = to_device(epoch_scalars(state, busy_steps), dev)
+        out["device_busy_ms"] = device_busy_ms(lambda: resident_epoch(
+            groups, more, more_scalars)) / busy_steps
+        out["step_ms"] = seconds / (n_steps - k) * 1e3
+        out["device_busy_share"] = out["device_busy_ms"] / out["step_ms"]
+    return out
+
+
+def dp_rank_runs(ctx, fasta, snv_bed, indel_bed, seed, device="cuda:0"):
+    """Phase 16's two-rank gloo runs on one rank (or alone on
+    ``device``): SNVNet2 and the U-Net at ``DP_LR``, and SNVNet2 at the
+    CLI's learning rate."""
+    return {"snv": dp_steps(ctx, fasta, snv_bed, "snv", DP_STEPS, 1, seed,
+                            device=device, lr=DP_LR),
+            "indel": dp_steps(ctx, fasta, indel_bed, "indel",
+                              DP_INDEL_STEPS, 1, seed, device=device,
+                              lr=DP_LR),
+            "snv_cli_lr": dp_steps(ctx, fasta, snv_bed, "snv", DP_STEPS, 1,
+                                   seed, device=device)}
+
+
+def refusal(cli, argv) -> str:
+    """The error a CLI call raises ('' when it runs)."""
+    try:
+        cli(argv)
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def phase_sharded_predict(work, fasta, bed, model_path, dev):
+    """Two replicas on one card against one: ``sharded_predict`` on the
+    predict BED, fused and unfused (logits, loss, K1 launches, sites/s),
+    and ``predict_genome --fused_inference`` of the 1 Mb chromosome."""
+    import torch
+    from mural_tpu_torch.models.registry import build_model_from_config
+    from mural_tpu_torch.ops import fused_code_conv as fcc
+    from mural_tpu_torch.parallel.sharded_predict import sharded_predict
+    from mural_tpu_torch.predict.genome_wide import (GenomePredictOptions,
+                                                     run_genome_predict)
+    from mural_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                  load_config)
+    config = load_config(model_path + ".config.pkl")
+    model = build_model_from_config(config, 0, "snv")
+    load_checkpoint(model_path, model)
+    ds = fed_dataset(bed, fasta, config, "snv")
+    runs, checks = {}, {}
+    n_batches = -(-ds.n_sites // BATCH)
+    for fused in (True, False):
+        got = {}
+        for n in (1, 2):
+            fcc.LAUNCHES = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, loss = sharded_predict(model, ds, BATCH,
+                                           devices=[dev] * n,
+                                           fused_inference=fused, n_class=4)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got[n] = (logits, loss)
+            runs[f"{'fused' if fused else 'unfused'}_{n}"] = {
+                "seconds": seconds, "sites_per_s": ds.n_sites / seconds,
+                "k1_launches": fcc.LAUNCHES, "loss": loss}
+        name = "fused" if fused else "unfused"
+        err = float(np.abs(got[2][0] - got[1][0]).max())
+        runs[f"{name}_2"]["max_abs_err"] = err
+        checks[f"{name}: logits of two replicas within {TOL_SHARDED}"] = (
+            got[2][0].shape == got[1][0].shape == (ds.n_sites, 4)
+            and err <= TOL_SHARDED)
+        checks[f"{name}: loss within {TOL_SHARDED} relative"] = abs(
+            got[2][1] - got[1][1]) <= TOL_SHARDED * abs(got[1][1])
+    checks["K1 twice per shard batch (two replicas, fused)"] = (
+        runs["fused_2"]["k1_launches"] == 2 * 2 * n_batches)
+    checks["K1 not launched unfused"] = (
+        runs["unfused_2"]["k1_launches"] == 0)
+    genome = {}
+    for n in (1, 2):
+        out = str(work / f"gw_replicas_{n}.tsv.gz")
+        fcc.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total = run_genome_predict(GenomePredictOptions(
+            ref_genome=fasta, model_path=model_path,
+            model_config_path=model_path + ".config.pkl",
+            calibrator_path=model_path + ".fdiri_cal.pkl", pred_file=out,
+            focal_base="A", chroms=[GW_CHROM], batch_size=BATCH,
+            n_workers=0, fused_inference=True, device=dev,
+            devices=[dev] * n), "snv", printer=lambda *a: None)
+        seconds = time.perf_counter() - t0
+        genome[n] = {"sites": total, "seconds": seconds,
+                     "sites_per_s": total / seconds,
+                     "k1_launches": fcc.LAUNCHES,
+                     "tsv": read_genome_tsv(out)}
+    one, two = genome[1].pop("tsv"), genome[2].pop("tsv")
+    checks["predict_genome: two replicas write the same rows"] = (
+        one[1] == two[1] and all(np.array_equal(one[2][c], two[2][c])
+                                 for c in ("chrom", "start", "strand",
+                                           "mut_type")))
+    checks["predict_genome: probabilities within %.4g"] = within_printed(
+        two[2]["probs"], one[2]["probs"])
+    checks["predict_genome: K1 twice per shard batch"] = (
+        genome[2]["k1_launches"] == 2 * genome[1]["k1_launches"])
+    runs["genome"] = genome
+    log("sharded predict on two replicas of one card: " + json.dumps(runs))
+    check_all("sharded predict on two replicas of one card", checks)
+    return runs
+
+
+def phase_dp_train(fasta, family_bed, indel_bed, dev, seed):
+    """Two gloo ranks on one card against one process (SNVNet2 and the
+    U-Net), and one NCCL rank with 8-step CUDA graphs against the graphs
+    without a group."""
+    from mural_tpu_torch.parallel.distributed import spawn_ranks
+    out, checks = {}, {}
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dp_rank_runs, [dev, dev],
+                        (fasta, family_bed, indel_bed, seed),
+                        backend="gloo")
+    out["gloo_spawn_and_run_s"] = time.perf_counter() - t0
+    alone = dp_rank_runs(None, fasta, family_bed, indel_bed, seed, dev)
+    for name, first in (("snv", 8), ("indel", DP_INDEL_STEPS),
+                        ("snv_cli_lr", 8)):
+        ref = np.asarray(alone[name]["losses"])
+        rel = [np.abs(np.asarray(r[name]["losses"]) - ref) / np.abs(ref)
+               for r in ranks]
+        mean_rel = abs(np.mean(ranks[0][name]["losses"]) - ref.mean()) \
+            / abs(ref.mean())
+        out[name] = {"max_rel_first": float(max(r[:first].max()
+                                                for r in rel)),
+                     "max_rel_all": float(max(r.max() for r in rel)),
+                     "mean_rel": float(mean_rel),
+                     "ranks": [{k: v for k, v in r[name].items()
+                                if k != "losses"} for r in ranks],
+                     "alone": {k: v for k, v in alone[name].items()
+                               if k != "losses"}}
+        if name == "snv_cli_lr":       # recorded: the drift at 1e-3
+            out[name]["rel_per_step"] = [float(f"{v:.3g}") for v in rel[0]]
+            continue
+        checks[f"{name}: per-step loss within {TOL_STEP} over the first "
+               f"{first} steps"] = out[name]["max_rel_first"] <= TOL_STEP
+        checks[f"{name}: both ranks report the same losses"] = (
+            ranks[0][name]["losses"] == ranks[1][name]["losses"])
+    checks[f"snv: the {DP_STEPS}-step mean within {TOL_DP_MEAN}"] = (
+        out["snv"]["mean_rel"] <= TOL_DP_MEAN)
+    checks["snv: K2/K3 twice per step on each rank"] = all(
+        r["snv"]["k2"] == r["snv"]["k3"] == 2 * DP_STEPS for r in ranks)
+    checks["indel: no K2/K3 launch"] = all(
+        r["indel"]["k2"] == r["indel"]["k3"] == 0 for r in ranks)
+    # one NCCL rank: the captured all-reduce of the gradients replays
+    t0 = time.perf_counter()
+    nccl = spawn_ranks(dp_steps, [dev], (fasta, family_bed, "snv",
+                                         DP_GRAPH_STEPS, FED_K, seed,
+                                         PROFILED_STEPS), backend="nccl")[0]
+    out["nccl_spawn_and_run_s"] = time.perf_counter() - t0
+    graphs = dp_steps(None, fasta, family_bed, "snv", DP_GRAPH_STEPS, FED_K,
+                      seed, PROFILED_STEPS, dev)
+    rel = np.abs(np.asarray(nccl["losses"]) - graphs["losses"]) \
+        / np.abs(graphs["losses"])
+    out["nccl_graphs"] = {k: v for k, v in nccl.items() if k != "losses"}
+    out["graphs"] = {k: v for k, v in graphs.items() if k != "losses"}
+    out["nccl_max_rel"] = float(rel.max())
+    checks[f"NCCL rank, {FED_K}-step graphs: per-step loss within "
+           f"{TOL_STEP} of the graphs without a group"] = (
+        out["nccl_max_rel"] <= TOL_STEP)
+    checks["NCCL rank: K2/K3 twice per step, replays included"] = (
+        nccl["k2"] == nccl["k3"] == 2 * DP_GRAPH_STEPS)
+    log("data-parallel train steps: " + json.dumps(out))
+    check_all("data-parallel train steps", checks)
+    return out
+
+
+def phase_tail_cli(work, fasta, family_bed, cuda_id):
+    """``train --epochs 3 --fused_stem on`` through the CLI: the files of
+    every epoch, and each epoch's seconds beside its tail's on its
+    thread."""
+    from mural_tpu_torch.cli.mural_snv import main as cli
+    run = cli_train(cli, work, fasta, family_bed, "tail", cuda_id,
+                    ["--fused_stem", "on", "--epochs", str(TAIL_EPOCHS)])
+    trial, epochs = run["trial"], run["epochs"]
+    log("train with the overlapped epoch tail: " + json.dumps(epochs))
+    check_all("train with the overlapped epoch tail", {
+        "exit code 0": run["rc"] == 0,
+        f"{TAIL_EPOCHS} checkpoint triples and metrics files": all(
+            (trial / f"checkpoint_{e}" / f).exists()
+            for e in range(TAIL_EPOCHS)
+            for f in ("model", "model.config.pkl", "model.fdiri_cal.pkl",
+                      f"epoch_{e}_metrics.txt")),
+        f"{TAIL_EPOCHS} progress.csv rows": len(
+            (trial / "progress.csv").read_text().splitlines())
+        == TAIL_EPOCHS + 1,
+        "finite metrics": all(finite_metrics(trial, e)
+                              for e in range(TAIL_EPOCHS)),
+        "every epoch and tail logged": len(epochs) == TAIL_EPOCHS and all(
+            e["tail_s"] is not None for e in epochs),
+    })
+    return {"seconds": run["seconds"], "epochs": epochs,
+            "k2": run["k2"], "k3": run["k3"]}
+
+
+def phase_parallel(work, fasta, bed, family_bed, indel_bed, model_path,
+                   dev, seed):
+    """Phase 16: the refusals of ``--dp_devices 2`` / ``--n_devices 2`` on
+    one card, replicas on one card, two gloo ranks and one NCCL rank, and
+    the overlapped epoch tail."""
+    from mural_tpu_torch.cli.mural_snv import main as cli
+    part_s = {}
+    t0 = time.perf_counter()
+    want = "requested 2 devices, have 1"
+    common = ["--ref_genome", fasta, "--model_path", model_path,
+              "--model_config_path", model_path + ".config.pkl"]
+    refusals = {
+        "train": refusal(cli, ["train", "--ref_genome", fasta,
+                               "--train_data", family_bed,
+                               "--experiment_name", "dp2",
+                               "--dp_devices", "2"]),
+        "predict": refusal(cli, ["predict", *common, "--test_data", bed,
+                                 "--pred_file", str(work / "n2.tsv.gz"),
+                                 "--n_devices", "2"]),
+        "predict_genome": refusal(cli, ["predict_genome", *common,
+                                        "--chroms", GW_CHROM, "--pred_file",
+                                        str(work / "gw_n2.tsv.gz"),
+                                        "--n_devices", "2"])}
+    check_all("--dp_devices 2 and --n_devices 2 on one card", {
+        f"{name} refused with '{want}'": text == want
+        for name, text in refusals.items()})
+    part_s["refusals"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded = phase_sharded_predict(work, fasta, bed, model_path, dev)
+    part_s["sharded_predict"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dp = phase_dp_train(fasta, family_bed, indel_bed, dev, seed)
+    part_s["dp_train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tail = phase_tail_cli(work, fasta, family_bed, dev.index or 0)
+    part_s["tail_cli"] = time.perf_counter() - t0
+    out = {"part_s": part_s, "sharded": sharded, "dp": dp, "tail": tail}
+    log("phase 16: " + json.dumps(out))
+    return out
+
+
 def kernel_records(k1, k23, k1_launches, train_on, family=None,
                    later=None, genome=None, fed=None, k23_bf16=None,
-                   mixed=None):
+                   mixed=None, parallel=None):
     """The kernels' JSON records from phases 2-3; ``launches`` come from
     the main path's runs (None when it did not run): K1 from phase 6's
     fused predict, K2/K3 from phase 7's fused train (resident data, 8
@@ -3233,7 +3614,9 @@ def kernel_records(k1, k23, k1_launches, train_on, family=None,
     records of its own (``k23_bf16``, phase 3's checks and timings in that
     mode); their ``launches`` come from phase 15's ``train --bf16
     --fused_stem on`` (``mixed``), and ``launches_phase15`` from its step
-    runs."""
+    runs.  ``launches_phase16`` (``parallel``): K1 on the sharded
+    predicts and genome-wide runs, K2/K3 on each data-parallel rank and
+    the overlapped-tail CLI run."""
     p11 = None
     if later is not None:
         tr, ind = later["transfer"], later["indel_transfer"]["launches"]
@@ -3262,6 +3645,11 @@ def kernel_records(k1, k23, k1_launches, train_on, family=None,
         "launches_phase11": p11 and p11[0],
         "launches_phase12": genome and {
             name: run["k1_launches"] for name, run in genome.items()},
+        "launches_phase16": parallel and {
+            **{name: run["k1_launches"] for name, run in
+               parallel["sharded"].items() if name != "genome"},
+            **{f"genome_{n}_replicas": run["k1_launches"] for n, run in
+               parallel["sharded"]["genome"].items()}},
     }, {
         "name": "code_conv_pool_fwd", "route": "cuda",
         "source": "mural_tpu_torch/ops/csrc/code_conv_pool.cu",
@@ -3277,6 +3665,11 @@ def kernel_records(k1, k23, k1_launches, train_on, family=None,
         "launches_phase11": p11 and p11[1],
         "launches_phase13": fed and {
             name: run["k2"] for name, run in fed["snv"].items()},
+        "launches_phase16": parallel and {
+            "gloo_ranks": [r["k2"] for r in
+                           parallel["dp"]["snv"]["ranks"]],
+            "nccl_rank_graphs": parallel["dp"]["nccl_graphs"]["k2"],
+            "tail_cli": parallel["tail"]["k2"]},
     }, {
         "name": "code_conv_pool_bwd", "route": "cuda",
         "source": "mural_tpu_torch/ops/csrc/code_conv_pool.cu",
@@ -3293,6 +3686,11 @@ def kernel_records(k1, k23, k1_launches, train_on, family=None,
         "launches_phase11": p11 and p11[2],
         "launches_phase13": fed and {
             name: run["k3"] for name, run in fed["snv"].items()},
+        "launches_phase16": parallel and {
+            "gloo_ranks": [r["k3"] for r in
+                           parallel["dp"]["snv"]["ranks"]],
+            "nccl_rank_graphs": parallel["dp"]["nccl_graphs"]["k3"],
+            "tail_cli": parallel["tail"]["k3"]},
     }]
     if k23_bf16 is not None:
         b128 = k23_bf16["timings"][TRAIN_BATCH]
@@ -3430,12 +3828,16 @@ def main(argv=None) -> int:
     mixed = timed("mixed_ensembles", phase_mixed_ensembles, work, fasta,
                   family_bed, indel_beds[1], model_path, dev, args.seed,
                   fed["snv"]["resident_graphs_unfused"]["windows_per_s"][-1])
+    # 16. replicas and data-parallel ranks on the one card, the overlapped
+    # epoch tail (K1-K3 counted from 0 around each run, in each rank)
+    parallel = timed("parallel", phase_parallel, work, fasta, bed,
+                     family_bed, indel_beds[1], model_path, dev, args.seed)
     shutil.rmtree(work, ignore_errors=True)
 
     # 14. results
     log(json.dumps({"kernels": kernel_records(
         k1, k23, fused["launches"], train_on, family, later, genome, fed,
-        k23_bf16, mixed)}))
+        k23_bf16, mixed, parallel)}))
     log(json.dumps({
         "card": card, "build_s": t_build,
         "model_max_abs_err": model_err, **fwd_ms,
@@ -3458,6 +3860,7 @@ def main(argv=None) -> int:
         "device_fed": fed,
         "k2_k3_bf16": {k: v for k, v in k23_bf16.items() if k != "timings"},
         "mixed_ensembles": mixed,
+        "parallel": parallel,
         "n_sites": args.n_sites, "n_train": args.n_train,
         "n_indel_sites": INDEL_SITES,
         "n_indel_train": INDEL_TRAIN, "batch": BATCH,

@@ -140,7 +140,8 @@ def _scheduler_args(p, default_experiment):
                         "trials needing different programs run "
                         "normally. Default: off.")
     g.add_argument("--dp_devices", type=int, metavar="INT", default=1,
-                   help="Data-parallel devices (only 1 is ported). "
+                   help="Data-parallel training over this many CUDA "
+                        "devices (batch sharded, grads all-reduced). "
                         "Default: 1.")
     g.add_argument("--profile_dir", type=str, metavar="DIR", default=None,
                    help="Write a torch.profiler trace of the first "
@@ -373,8 +374,8 @@ def add_predict_parser(subparsers, model_type: str):
     opt.add_argument("--pred_batch_size", type=int, metavar="INT",
                      default=16, help="Batch size. Default: 16.")
     opt.add_argument("--n_devices", type=int, metavar="INT", default=1,
-                     help="Shard inference over this many devices (not "
-                          "ported yet).")
+                     help="Shard inference over this many CUDA "
+                          "devices.")
     opt.add_argument("--fused_inference", default=False,
                      action="store_true",
                      help="BN-folded fused forward with the CUDA stem "
@@ -426,8 +427,7 @@ def add_predict_genome_parser(subparsers, model_type: str):
                           "than SNV ones, so its default is smaller). "
                           "Default: %(default)s.")
     opt.add_argument("--n_devices", type=int, metavar="INT", default=1,
-                     help="Shard over this many devices (not ported "
-                          "yet).")
+                     help="Shard over this many CUDA devices.")
     opt.add_argument("--n_workers", type=int, metavar="INT", default=None,
                      help="Postprocess worker processes (calibration + "
                           "formatting + gzip). 0 = inline. Default: "

@@ -180,6 +180,7 @@ def _advise_indel_throughput(args, model_type: str) -> None:
 
 def cmd_train(args, model_type: str) -> int:
     from mural_tpu_torch.device import resolve_device
+    from mural_tpu_torch.parallel.mesh import make_devices
     from mural_tpu_torch.train.loop import check_ported
     from mural_tpu_torch.tune.runner import run_experiment
     _advise_indel_throughput(args, model_type)
@@ -189,6 +190,8 @@ def cmd_train(args, model_type: str) -> int:
     # error.txt and the run carries on
     check_ported(opts, model_type)
     opts.device = resolve_device(args.cpu_only, args.cuda_id)
+    if opts.dp_devices > 1:         # "requested N devices, have M"
+        make_devices(opts.dp_devices, opts.device)
     run_experiment(space, opts, model_type,
                    _experiment(args, ensemble=args.trial_ensemble))
     return 0

@@ -58,15 +58,28 @@ def iter_batch_rows(ds: SiteDataset, sampled_segments: int,
         yield np.concatenate([carry, pad]), len(carry)
 
 
+def shard_batch_rows(rows: np.ndarray, n_valid: int, shard: slice):
+    """The ``shard`` rows of a batch and how many of them are real (the
+    real rows of a padded batch are its first ``n_valid``)."""
+    lo, hi = shard.start, shard.stop
+    return rows[lo:hi], min(max(n_valid - lo, 0), hi - lo)
+
+
 def segment_pool_batches(ds: SiteDataset, sampled_segments: int,
                          batch_size: int, shuffle: bool = True,
                          rng: Optional[np.random.Generator] = None,
-                         pad_final: bool = False) -> Iterator[Batch]:
+                         pad_final: bool = False,
+                         shard: Optional[slice] = None) -> Iterator[Batch]:
     """Yield :class:`Batch` objects; with ``shuffle=False`` the rows come
-    in the dataset's segment-emission order."""
+    in the dataset's segment-emission order.  With ``shard`` (a slice of
+    the batch's rows: a data-parallel rank's or an inference replica's)
+    the rows are drawn as for the whole batch and only the shard's rows
+    are built."""
     for rows, n_valid in iter_batch_rows(ds, sampled_segments, batch_size,
                                          shuffle=shuffle, rng=rng,
                                          pad_final=pad_final):
+        if shard is not None:
+            rows, n_valid = shard_batch_rows(rows, n_valid, shard)
         y = ds.y[rows].copy()
         cat = ds.cat[rows].copy()
         cont = None if ds.cont is None else ds.cont[rows]

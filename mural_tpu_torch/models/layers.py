@@ -121,7 +121,9 @@ def fused_stem_pool(conv1: nn.Sequential, codes: torch.Tensor,
     its running buffers follow torch's rule: ``0.9 * old + 0.1 * stat``
     with the unbiased variance, and ``num_batches_tracked`` counts up.
     So a fused-trained state_dict has the unfused one's keys and
-    meaning.
+    meaning.  Under data parallelism the BN is a
+    :class:`~mural_tpu_torch.parallel.sync_bn.CrossRankBatchNorm` and the
+    histogram is summed over the ranks.
 
     Under a bfloat16 autocast (``--bf16`` train steps) the stem runs the
     kernels' single-pass bf16 mode and returns bfloat16; the fold runs
@@ -133,7 +135,10 @@ def fused_stem_pool(conv1: nn.Sequential, codes: torch.Tensor,
     if ps != pk:
         raise ValueError("fused stem requires pool stride == kernel")
     if bn.training:
-        mean, var_b, var_u = hist_batch_stats(codes)
+        # behind a cross-rank BN (parallel/sync_bn.py) the histogram is
+        # the global batch's
+        mean, var_b, var_u = hist_batch_stats(
+            codes, getattr(bn, "reduce_counts", None))
         with torch.no_grad():
             m = bn.momentum
             bn.running_mean.copy_((1 - m) * bn.running_mean + m * mean)

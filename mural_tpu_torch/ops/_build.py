@@ -99,3 +99,14 @@ def check_launch(err: int, what: str) -> None:
 def current_stream(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(fn, device, *args) -> int:
+    """Call the C launcher ``fn(*args)`` with ``device`` (the tensors')
+    as the thread's current device: the launch, and the kernel's
+    shared-memory attribute, which CUDA keeps per device, go to that card
+    whatever card the calling thread had current (a replica or a rank on
+    ``cuda:1``).  Returns the launcher's ``cudaError_t``."""
+    import torch
+    with torch.cuda.device(device):
+        return fn(*args)

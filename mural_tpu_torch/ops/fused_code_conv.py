@@ -29,7 +29,7 @@ import torch
 from mural_tpu_torch.device import constant
 from mural_tpu_torch.genome.encode import ONE_HOT_TABLE
 from mural_tpu_torch.ops._build import (I64, INT, PTR, KernelLibrary,
-                                        check_launch, current_stream)
+                                        check_launch, current_stream, launch)
 from mural_tpu_torch.ops._plan import (MAX_SMEM, NUM_SMS, round_up,
                                        thread_runs)
 
@@ -159,12 +159,11 @@ def code_conv1d(codes: torch.Tensor, table: torch.Tensor,
     if plan.grid == 0:
         return out
     lib = LIBRARY.load()
-    with torch.cuda.device(codes.device):
-        err = lib.code_conv1d_launch(
-            codes.data_ptr(), codes.stride(0), table.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), B, L, k, C, plan.rows,
-            plan.l_tile, plan.positions, plan.grid, plan.threads, plan.smem,
-            current_stream(codes))
+    err = launch(lib.code_conv1d_launch, codes.device,
+                 codes.data_ptr(), codes.stride(0), table.data_ptr(),
+                 bias.data_ptr(), out.data_ptr(), B, L, k, C, plan.rows,
+                 plan.l_tile, plan.positions, plan.grid, plan.threads,
+                 plan.smem, current_stream(codes))
     check_launch(err, f"code_conv1d (B={B}, L={L}, k={k}, C={C})")
     global LAUNCHES
     LAUNCHES += 1

@@ -46,7 +46,7 @@ import torch
 from mural_tpu_torch.device import constant
 from mural_tpu_torch.genome.encode import ONE_HOT_TABLE
 from mural_tpu_torch.ops._build import (I64, INT, PTR, KernelLibrary,
-                                        check_launch, current_stream)
+                                        check_launch, current_stream, launch)
 from mural_tpu_torch.ops._plan import (MAX_SMEM, MAX_THREADS, NUM_SMS,
                                        round_up, thread_runs)
 from mural_tpu_torch.ops.fused_code_conv import (NCODES, SENTINEL,
@@ -92,22 +92,31 @@ def pool_out_len(L: int, pk: int, pp: int) -> int:
     return (L + 2 * pp - pk) // pk + 1
 
 
-def hist_batch_stats(codes: torch.Tensor):
+def hist_batch_stats(codes: torch.Tensor, reduce=None):
     """BatchNorm batch statistics of ``one_hot(codes)`` from the 15-code
     histogram: ``(mean (4,), biased var (4,), unbiased var (4,))`` float32.
 
     The counts come from ``scatter_add_`` rather than ``torch.bincount``,
     which synchronises with the host on CUDA tensors; the contraction
-    with the one-hot table runs in float64, then rounds once."""
+    with the one-hot table runs in float64, then rounds once.  With
+    ``reduce`` (a data-parallel step: the SUM over the ranks, in place)
+    the 16 int64 counts, whose sum is the element count, are reduced
+    first, so the statistics are the global batch's."""
     n = codes.numel()
     idx = codes.reshape(-1).long() & 15
     cnt = torch.zeros(NCODES, dtype=torch.int64, device=codes.device)
     cnt.scatter_add_(0, idx, torch.ones_like(idx))
+    if reduce is not None:
+        cnt = reduce(cnt)
+        n = cnt.sum().double()          # a device scalar: no host sync
     t = constant(ONE_HOT_TABLE, codes.device, torch.float64)   # (15, 4)
     cnt = cnt[:15].double()
     mean = (cnt @ t) / n
     var = torch.clamp((cnt @ (t * t)) / n - mean * mean, min=0.0)
-    unbiased = var * (n / max(n - 1, 1))
+    if reduce is not None:
+        unbiased = var * (n / torch.clamp(n - 1, min=1))
+    else:
+        unbiased = var * (n / max(n - 1, 1))
     return mean.float(), var.float(), unbiased.float()
 
 
@@ -298,12 +307,11 @@ def _fwd_kernel(codes, table, bias, pk, pp, bf16):
         return pooled, jstar
     lib = LIBRARY.load()
     stream = current_stream(codes)
-    with torch.cuda.device(codes.device):
-        err = lib.code_conv_pool_fwd_launch(
-            codes.data_ptr(), codes.stride(0), table.data_ptr(),
-            bias.data_ptr(), pooled.data_ptr(), jstar.data_ptr(), B, L, k,
-            C, pk, pp, P, plan.rows, plan.p_tile, plan.windows, plan.grid,
-            plan.threads, plan.smem, int(bf16), stream)
+    err = launch(lib.code_conv_pool_fwd_launch, codes.device,
+                 codes.data_ptr(), codes.stride(0), table.data_ptr(),
+                 bias.data_ptr(), pooled.data_ptr(), jstar.data_ptr(), B, L,
+                 k, C, pk, pp, P, plan.rows, plan.p_tile, plan.windows,
+                 plan.grid, plan.threads, plan.smem, int(bf16), stream)
     check_launch(err, f"code_conv_pool forward (B={B}, L={L}, k={k}, "
                       f"C={C}, pk={pk}, bf16={bf16})")
     _count(stream, 1, 0, bf16)
@@ -335,12 +343,11 @@ def _bwd_kernel(codes, jstar, g, k, pk, pp, bf16):
     dtable = torch.empty((k, NCODES, C), dtype=torch.float32, device=g.device)
     lib = LIBRARY.load()
     stream = current_stream(g)
-    with torch.cuda.device(g.device):
-        err = lib.code_conv_pool_bwd_launch(
-            codes.data_ptr(), codes.stride(0), jstar.data_ptr(),
-            g.data_ptr(), partial.data_ptr(), dtable.data_ptr(), B, L, k, C,
-            pk, pp, P, plan.rows, plan.p_tile, plan.groups, plan.threads,
-            plan.grid, plan.smem, int(bf16), stream)
+    err = launch(lib.code_conv_pool_bwd_launch, g.device,
+                 codes.data_ptr(), codes.stride(0), jstar.data_ptr(),
+                 g.data_ptr(), partial.data_ptr(), dtable.data_ptr(), B, L,
+                 k, C, pk, pp, P, plan.rows, plan.p_tile, plan.groups,
+                 plan.threads, plan.grid, plan.smem, int(bf16), stream)
     check_launch(err, f"code_conv_pool backward (B={B}, L={L}, k={k}, "
                       f"C={C}, pk={pk}, bf16={bf16})")
     _count(stream, 0, 1, bf16)

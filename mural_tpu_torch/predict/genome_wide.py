@@ -13,6 +13,12 @@
 - The forward is the model's, or for SNVNet2 with ``fused_inference``
   the BN-folded forward whose stems run the CUDA kernel K1
   (:mod:`mural_tpu_torch.ops.fused_inference`).
+- With ``n_devices > 1`` a replica of the model runs on each device
+  (``parallel/mesh.py make_devices``): a batch is rounded up to ``per =
+  ceil(B / n)`` rows per replica, each chunk's codes go to each replica's
+  device once, and replica ``i`` takes rows ``[i*per, (i+1)*per)`` of each
+  batch's starts, as the JAX package replicates the codes and shards the
+  starts over its mesh.
 - Logits drain to the host once per flush window: a copy on a side
   stream waits on an event recorded after the window's ``torch.cat``, so
   it waits for that window's batches only, and a drain thread waits on
@@ -24,6 +30,7 @@
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import queue
 import threading
@@ -37,6 +44,7 @@ from mural_tpu_torch.device import resolve_device, to_device
 from mural_tpu_torch.genome import encode as enc
 from mural_tpu_torch.genome.fasta import COMPLEMENT, Genome, encode_sequence
 from mural_tpu_torch.models.registry import build_model_from_config
+from mural_tpu_torch.parallel.mesh import make_devices
 from mural_tpu_torch.ops.device_gather import (iter_code_chunks,
                                                make_batch_code_encoder,
                                                make_batch_encoder)
@@ -60,6 +68,9 @@ class GenomePredictOptions:
                                          # 64k sites per flush
     chunk_size: int = 1 << 22        # codes uploaded per device chunk
     n_devices: int = 1
+    # replicas' devices (may repeat, e.g. two on one card); overrides
+    # n_devices
+    devices: Optional[Sequence] = None
     n_workers: Optional[int] = None  # farm worker processes; None:
                                      # post_farm.auto_n_workers
     fused_inference: bool = False    # BN-folded forward with K1 (SNVNet2)
@@ -134,12 +145,14 @@ def run_genome_predict(opts: GenomePredictOptions, model_type: str = "snv",
                        printer=print) -> int:
     """Predict every focal site of the genome into ``opts.pred_file``;
     returns the number of sites written."""
-    if opts.n_devices > 1:
-        raise NotImplementedError("predict_genome --n_devices > 1 is not "
-                                  "ported yet (ROADMAP.md item 10)")
     t0 = time.time()
     device = (torch.device(opts.device) if opts.device is not None
               else resolve_device())
+    # --n_devices > 1: a replica per device; each chunk's codes go to
+    # each replica's device once and each batch's starts are split
+    devices = ([torch.device(d) for d in opts.devices] if opts.devices
+               else make_devices(opts.n_devices, device)
+               if opts.n_devices > 1 else [device])
     # the reference semantics are float32 (as predict)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -182,23 +195,30 @@ def run_genome_predict(opts: GenomePredictOptions, model_type: str = "snv",
                                                          snv2_fused_forward)
         encode_fn, _, _ = make_batch_code_encoder(
             local_radius, local_order, distal_radius, model_type)
-        folded = fold_snv2(model)
 
-        def forward(cat, distal):
-            return snv2_fused_forward(folded, cat, distal)
+        def make_forward(m):
+            folded = fold_snv2(m)
+            return lambda cat, distal: snv2_fused_forward(folded, cat,
+                                                          distal)
     else:
         encode_fn, _, _ = make_batch_encoder(local_radius, local_order,
                                              distal_radius, model_type)
 
-        def forward(cat, distal):
-            return model(cat, distal, None)
+        def make_forward(m):
+            return lambda cat, distal: m(cat, distal, None)
 
-    def genome_step(chunk, packed):
+    forwards = ([make_forward(model)] if len(devices) == 1 else
+                [make_forward(copy.deepcopy(model).to(d).eval())
+                 for d in devices])
+
+    def genome_step(i, chunk, packed):
         cat, distal = encode_fn(chunk, packed[:, 0].long(),
                                 packed[:, 1].long(), packed[:, 2].bool())
-        return forward(cat, distal)
+        return forwards[i](cat, distal)
 
-    batch_size = opts.batch_size
+    n_rep = len(devices)
+    per = -(-opts.batch_size // n_rep)      # rows per replica
+    batch_size = per * n_rep
     margin = max(distal_radius, local_radius + local_order) + 2
     n_workers = (auto_n_workers() if opts.n_workers is None
                  else opts.n_workers)
@@ -211,7 +231,8 @@ def run_genome_predict(opts: GenomePredictOptions, model_type: str = "snv",
         n_workers=n_workers)
     flush_batches = (opts.flush_batches if opts.flush_batches
                      else max(4, 65536 // batch_size))
-    side = torch.cuda.Stream(device) if device.type == "cuda" else None
+    side = ({d: torch.cuda.Stream(d) for d in set(devices)}
+            if device.type == "cuda" else None)
 
     # flush windows drain on a separate thread: the wait for the logits'
     # copy and the farm's submit overlap the main loop's dispatching
@@ -225,11 +246,16 @@ def run_genome_predict(opts: GenomePredictOptions, model_type: str = "snv",
             item = drain_q.get()
             if item is None:
                 return
-            host, copied, valids, meta_rows = item
+            hosts, copied, valids, meta_rows = item
             try:
-                if copied is not None:
-                    copied.synchronize()
-                flat = host.numpy()
+                for event in copied:
+                    event.synchronize()
+                if n_rep == 1:
+                    flat = hosts[0].numpy()
+                else:    # replica i holds rows [i*per, (i+1)*per) of each
+                    flat = np.stack([h.numpy().reshape(-1, per, n_class)
+                                     for h in hosts], axis=1).reshape(
+                                         -1, n_class)
                 logits_np = [flat[i * batch_size:i * batch_size + n]
                              for i, n in enumerate(valids)]
                 # one farm chunk per run of same-chromosome batches
@@ -261,29 +287,39 @@ def run_genome_predict(opts: GenomePredictOptions, model_type: str = "snv",
             except queue.Full:
                 continue
 
-    pending: List[torch.Tensor] = []
+    pending: List[List[torch.Tensor]] = [[] for _ in devices]
     pending_valid: List[int] = []
     meta: List = []
 
+    def drain_copy(flat, d):
+        """``flat``'s copy to pinned host memory on ``d``'s side stream,
+        after the work enqueued so far: (host tensor, its event)."""
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(d))
+        side[d].wait_event(ready)
+        with torch.cuda.stream(side[d]):
+            host = torch.empty(flat.shape, dtype=flat.dtype,
+                               pin_memory=True)
+            host.copy_(flat, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(side[d])
+        flat.record_stream(side[d])
+        return host, copied
+
     def flush():
-        if not pending:
+        if not pending_valid:
             return
-        flat = torch.cat(pending)
-        if side is not None:
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(device))
-            side.wait_event(ready)
-            with torch.cuda.stream(side):
-                host = torch.empty(flat.shape, dtype=flat.dtype,
-                                   pin_memory=True)
-                host.copy_(flat, non_blocking=True)
-                copied = torch.cuda.Event()
-                copied.record(side)
-            flat.record_stream(side)
-        else:
-            host, copied = flat, None
-        to_drain((host, copied, list(pending_valid), list(meta)))
-        pending.clear()
+        hosts, copied = [], []
+        for i, d in enumerate(devices):
+            flat = torch.cat(pending[i])
+            if side is not None:
+                host, event = drain_copy(flat, d)
+                copied.append(event)
+            else:
+                host = flat
+            hosts.append(host)
+            pending[i].clear()
+        to_drain((hosts, copied, list(pending_valid), list(meta)))
         pending_valid.clear()
         meta.clear()
 
@@ -299,16 +335,17 @@ def run_genome_predict(opts: GenomePredictOptions, model_type: str = "snv",
                     opts.chunk_size, batch_size, local_radius,
                     distal_radius, model_type):
                 if padded is not None:
-                    chunk = to_device(padded, device)
+                    chunks = {d: to_device(padded, d) for d in set(devices)}
                 step_t0 = time.time()
-                pending.append(genome_step(chunk, to_device(packed,
-                                                            device)))
+                for i, d in enumerate(devices):
+                    pending[i].append(genome_step(i, chunks[d], to_device(
+                        packed[i * per:(i + 1) * per], d)))
                 if "first step (compile)" not in phases:
                     phases["first step (compile)"] = time.time() - step_t0
                 pending_valid.append(n_valid)
                 meta.append(mrow)
                 batch_count += 1
-                if len(pending) >= flush_batches:
+                if len(pending_valid) >= flush_batches:
                     flush()
                 if batch_count % opts.progress_every == 0:
                     printer(f"{batch_count} batches, {submitted:,} sites "

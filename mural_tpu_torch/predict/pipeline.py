@@ -4,12 +4,14 @@
 Rehydrates the architecture (SNVNet0-3 or the INDEL U-Net) from
 ``model.config.pkl``, encodes the BED (with the ``--bw_paths`` tracks'
 means and, for a checkpoint trained with them, their per-base distal
-channels), runs batched inference on the
-device, applies the saved calibrator and/or Poisson calibration (always
-for INDEL), writes the reference's TSV schema
-``chrom start end strand mut_type prob0..N`` sorted by (chrom, start)
-with ``%.4g`` floats (gzip when the path ends in ``.gz``), and prints the
-k-mer (``--kmer_corr``) and regional (``--region_corr``) correlations.
+channels), runs batched inference on the device (with ``n_devices >
+1`` on a replica per device,
+:mod:`mural_tpu_torch.parallel.sharded_predict`), applies the saved
+calibrator and/or Poisson calibration (always for INDEL), writes the
+reference's TSV schema ``chrom start end strand mut_type prob0..N``
+sorted by (chrom, start) with ``%.4g`` floats (gzip when the path ends
+in ``.gz``), and prints the k-mer (``--kmer_corr``) and regional
+(``--region_corr``) correlations.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ from mural_tpu_torch.evaluation.evaluator import (_kmer_columns,
 from mural_tpu_torch.genome.fasta import Genome
 from mural_tpu_torch.genome.tracks import TrackSet
 from mural_tpu_torch.models.registry import build_model_from_config
+from mural_tpu_torch.parallel.mesh import make_devices
+from mural_tpu_torch.parallel.sharded_predict import sharded_predict
 from mural_tpu_torch.train.checkpoint import (load_calibrator,
                                               load_checkpoint, load_config)
 from mural_tpu_torch.train.steps import masked_ce_sum, model_input
@@ -61,14 +65,9 @@ class PredictOptions:
 
 
 def _check_ported(opts: PredictOptions) -> None:
-    not_ported = [
-        (opts.with_h5, "--with_h5", 4),
-        (opts.n_devices > 1, "--n_devices > 1", 10),
-    ]
-    for value, flag, item in not_ported:
-        if value:
-            raise NotImplementedError(
-                f"predict {flag} is not ported yet (ROADMAP.md item {item})")
+    if opts.with_h5:
+        raise NotImplementedError(
+            "predict --with_h5 is not ported yet (ROADMAP.md item 4)")
 
 
 def run_predict(opts: PredictOptions, model_type: str = "snv",
@@ -79,6 +78,9 @@ def run_predict(opts: PredictOptions, model_type: str = "snv",
     start_time = time.time()
     device = (torch.device(opts.device) if opts.device is not None
               else resolve_device())
+    # --n_devices > 1: a replica per device (parallel/sharded_predict.py)
+    devices = (make_devices(opts.n_devices, device) if opts.n_devices > 1
+               else None)
     # the reference semantics are float32; cuDNN's TF32 default for
     # convolutions would keep only ~3 decimal digits
     torch.backends.cudnn.allow_tf32 = False
@@ -118,7 +120,7 @@ def run_predict(opts: PredictOptions, model_type: str = "snv",
     if opts.fused_inference and not use_fused:
         printer("NOTE: --fused_inference only supports SNV model_no 2 "
                 "without continuous features; using the standard path.")
-    if use_fused:
+    if use_fused and devices is None:
         from mural_tpu_torch.ops.fused_inference import (fold_snv2,
                                                          snv2_fused_forward)
         folded = fold_snv2(model)
@@ -161,27 +163,33 @@ def run_predict(opts: PredictOptions, model_type: str = "snv",
     parts = []
     t_fetch = t_pred = fetch_all = pred_all = 0.0
     t_loop = time.time()
-    with torch.inference_mode():
-        loss_dev = torch.zeros((), dtype=torch.float32, device=device)
-        t0 = time.time()
-        # t_fetch is the loop's wait for the prefetch thread's next batch
-        for count, db in enumerate(prefetch(timed_batches(), device), 1):
-            t1 = time.time()
-            t_fetch += t1 - t0
-            logits = forward(db.cat, db.distal, db.cont, db.distal_tracks)
-            # no per-batch host sync: the loss accumulates on the device
-            loss_dev += masked_ce_sum(logits, db.y, db.mask)
-            parts.append(logits[:db.n_valid])
+    if devices is not None:
+        logits, total_loss = sharded_predict(
+            model, ds, opts.pred_batch_size, devices=devices,
+            fused_inference=use_fused, n_class=n_class)
+    else:
+        with torch.inference_mode():
+            loss_dev = torch.zeros((), dtype=torch.float32, device=device)
             t0 = time.time()
-            t_pred += t0 - t1
-            if opts.pred_time_view and count % 500 == 0:
-                printer(f"batch {count}: fetch {t_fetch:.1f}s "
-                        f"predict {t_pred:.1f}s (last 500, async)")
-                fetch_all, pred_all = fetch_all + t_fetch, pred_all + t_pred
-                t_fetch = t_pred = 0.0
-        total_loss = float(loss_dev)
-        logits = (torch.cat(parts).cpu().numpy() if parts
-                  else np.zeros((0, n_class), np.float32))
+            # t_fetch is the loop's wait for the prefetch thread's next batch
+            for count, db in enumerate(prefetch(timed_batches(), device), 1):
+                t1 = time.time()
+                t_fetch += t1 - t0
+                logits = forward(db.cat, db.distal, db.cont, db.distal_tracks)
+                # no per-batch host sync: the loss accumulates on the device
+                loss_dev += masked_ce_sum(logits, db.y, db.mask)
+                parts.append(logits[:db.n_valid])
+                t0 = time.time()
+                t_pred += t0 - t1
+                if opts.pred_time_view and count % 500 == 0:
+                    printer(f"batch {count}: fetch {t_fetch:.1f}s "
+                            f"predict {t_pred:.1f}s (last 500, async)")
+                    fetch_all += t_fetch
+                    pred_all += t_pred
+                    t_fetch = t_pred = 0.0
+            total_loss = float(loss_dev)
+            logits = (torch.cat(parts).cpu().numpy() if parts
+                      else np.zeros((0, n_class), np.float32))
     t_out = time.time()
 
     e = np.exp(logits - logits.max(axis=1, keepdims=True))
@@ -226,15 +234,18 @@ def run_predict(opts: PredictOptions, model_type: str = "snv",
                 printer("regional corr:", f"{win}bp", corr)
 
     if opts.pred_time_view:
-        printer(f"time view: preprocess and model load "
-                f"{t_loop - start_time:.3f}s, batch loop {t_out - t_loop:.3f}s"
-                f" (host batch build on the prefetch thread {build_s[0]:.3f}s"
+        loop = (f" (host batch build on the prefetch thread "
+                f"{build_s[0]:.3f}s"
                 + (f", of which track windows {track_s[0]:.3f}s"
                    if ds.distal_tracks is not None else "")
                 + f"; waiting for batches {fetch_all + t_fetch:.3f}s, "
-                f"forward enqueue {pred_all + t_pred:.3f}s), calibration, "
-                f"sort and output {t_corr - t_out:.3f}s, k-mer and "
-                f"regional correlation {time.time() - t_corr:.3f}s")
+                f"forward enqueue {pred_all + t_pred:.3f}s)"
+                if devices is None else f" over {len(devices)} replicas")
+        printer(f"time view: preprocess and model load "
+                f"{t_loop - start_time:.3f}s, batch loop {t_out - t_loop:.3f}s"
+                f"{loop}, calibration, sort and output {t_corr - t_out:.3f}s,"
+                f" k-mer and regional correlation "
+                f"{time.time() - t_corr:.3f}s")
     printer("Total time used: %s seconds" % (time.time() - start_time))
     return out
 

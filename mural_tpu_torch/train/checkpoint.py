@@ -30,11 +30,14 @@ def clean_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             and v.numel() > 0}
 
 
-def save_checkpoint(save_path: str, model: torch.nn.Module, config: Dict,
+def save_checkpoint(save_path: str, model, config: Dict,
                     calibrator=None) -> None:
+    """Write the triple; ``model`` is a module or its state_dict (the
+    overlapped epoch tail passes a snapshot)."""
     os.makedirs(os.path.dirname(save_path) or ".", exist_ok=True)
-    sd = {k: v.detach().cpu() for k, v in
-          clean_state_dict(model.state_dict()).items()}
+    state = (model.state_dict() if isinstance(model, torch.nn.Module)
+             else model)
+    sd = {k: v.detach().cpu() for k, v in clean_state_dict(state).items()}
     torch.save(sd, save_path)
     with open(save_path + ".config.pkl", "wb") as fh:
         pickle.dump(config, fh)

@@ -202,6 +202,13 @@ class EnsembleState:
         return {k: v[t] for k, v in (*self.params.items(),
                                      *self.buffers.items())}
 
+    @torch.no_grad()
+    def load_member_state(self, t: int, state: Dict[str, torch.Tensor]
+                          ) -> None:
+        """Copy a :meth:`member_state_dict` of member ``t`` back in."""
+        for k, v in (*self.params.items(), *self.buffers.items()):
+            v[t].copy_(state[k])
+
 
 def ensemble_epoch_scalars(ens: EnsembleState, n_steps: int) -> np.ndarray:
     """``(n_steps, T, 4)`` float32 scalars of the epoch's next ``n_steps``

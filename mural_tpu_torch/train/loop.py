@@ -24,9 +24,20 @@ host-fed (batches built and uploaded on a prefetch thread,
 by default) or, with K = 1, one eager step per batch.  ``profile_dir``
 records epoch 0's train steps with torch.profiler.
 
-The epoch tail (calibration, evaluation, checkpoint) runs inline after
-validation, where the JAX package overlaps it with the next epoch on a
-thread; the files it writes and their order are the same.  With
+The epoch tail (calibration, evaluation, checkpoint, metrics file and
+the runner's report) runs on a thread while the next epoch trains
+(:class:`TailThread`), in the JAX package's order: join the previous
+tail, stop if it reported a stop, snapshot the weights on the device,
+start the tail, then early stopping and ROP on the main thread.  The
+tail copies the snapshot to the host after an event on the stream that
+made it; its error is raised again at the next join.  With
+``dp_devices > 1`` a trial runs as one process per device (``parallel/distributed.py spawn_ranks``): every
+rank draws the same batches and takes its rows of each, its BatchNorms
+reduce their statistics over the ranks (``parallel/sync_bn.py``), the
+gradients are SUMmed before the clip, the losses and the validation
+logits are reduced, and rank 0 alone runs the tail, writes the files and
+logs; a stop from its tail reaches the others at the epoch boundary.
+With
 ``fused_stem='on'`` each distal tower's first BN -> conv -> pool runs as
 the fused stem (CUDA kernels K2/K3 on the card, see
 :mod:`mural_tpu_torch.ops.fused_train_stem`) for the SNV models with
@@ -42,6 +53,7 @@ import dataclasses
 import math
 import os
 import sys
+import threading
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -60,6 +72,9 @@ from mural_tpu_torch.genome.fasta import Genome
 from mural_tpu_torch.genome.tracks import TrackSet
 from mural_tpu_torch.models.init import init_weights
 from mural_tpu_torch.models.registry import build_model, check_model_no
+from mural_tpu_torch.parallel.distributed import rank_context, spawn_ranks
+from mural_tpu_torch.parallel.mesh import make_devices
+from mural_tpu_torch.parallel.sync_bn import convert_batchnorm
 from mural_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from mural_tpu_torch.train.early_stopping import EarlyStopping
 from mural_tpu_torch.train.graphs import (StepGroups, epoch_scalars,
@@ -106,6 +121,8 @@ class TrainOptions:
     rng_seed: int = 0
     # torch device; None -> the CUDA card (RuntimeError without one)
     device: Optional[object] = None
+    # data-parallel ranks, one process on each of the first dp_devices
+    # devices of the device's kind (NCCL on CUDA, gloo on the CPU)
     dp_devices: int = 1
     # torch.profiler trace of epoch 0's train steps (forces K = 1)
     profile_dir: Optional[str] = None
@@ -129,14 +146,9 @@ def check_ported(opts: TrainOptions, model_type: str = "snv") -> None:
     ``build_model`` refuses it only inside a trial, whose error goes to
     its error.txt while the run carries on."""
     check_model_no(opts.model_no, model_type)
-    not_ported = [
-        (opts.with_h5, "--with_h5", 4),
-        (opts.dp_devices > 1, "--dp_devices > 1", 10),
-    ]
-    for value, flag, item in not_ported:
-        if value:
-            raise NotImplementedError(
-                f"train {flag} is not ported yet (ROADMAP.md item {item})")
+    if opts.with_h5:
+        raise NotImplementedError(
+            "train --with_h5 is not ported yet (ROADMAP.md item 4)")
 
 
 def split_segments_like_torch(n_segments: int, valid_ratio: float,
@@ -270,10 +282,11 @@ class EpochTail:
         self.printer = printer
         self.min_loss, self.min_loss_epoch, self.after_min_loss = 0.0, 0, 0
 
-    def __call__(self, epoch: int, model: torch.nn.Module, config: Dict,
+    def __call__(self, epoch: int, model, config: Dict,
                  valid_probs: np.ndarray, total_loss: float,
                  valid_total_loss: float):
-        """Returns the metrics and the seconds the Evaluators took."""
+        """Returns the metrics and the seconds the Evaluators took;
+        ``model`` is the module or a state_dict of it."""
         opts, printer = self.opts, self.printer
         local, n_class = self.data_local_valid, opts.n_class
         train_size, valid_size = self.train_size, self.valid_size
@@ -322,6 +335,69 @@ class EpochTail:
             for k, v in m.items():
                 fh.write(f"{k}: {v}\n")
         return m, eval_s
+
+
+class TailThread:
+    """One epoch tail at a time on a worker thread (``mural_tpu/train/
+    loop.py:599-700``).  :meth:`start` runs ``fn(*args)``; a return of
+    False (a scheduler stop) or an error sets ``stop``.  :meth:`join`
+    waits for the tail and raises its error on the calling thread."""
+
+    def __init__(self):
+        self.thread: Optional[threading.Thread] = None
+        self.stop = False
+        self.error: Optional[Exception] = None
+
+    def start(self, fn: Callable, *args) -> None:
+        def run():
+            try:
+                if fn(*args) is False:
+                    self.stop = True
+            except Exception as err:       # raised again at the join
+                self.error = err
+                self.stop = True
+
+        self.thread = threading.Thread(target=run, name="mural-epoch-tail",
+                                       daemon=True)
+        self.thread.start()
+
+    def join(self) -> None:
+        if self.thread is not None:
+            self.thread.join()
+            self.thread = None
+        if self.error is not None:
+            err, self.error = self.error, None
+            raise err
+
+
+def snapshot(state: Dict[str, torch.Tensor], device: torch.device):
+    """A state_dict cloned on its device before the next epoch's steps
+    change it, and on a card an event after the clones: ``(state, event
+    or None)``."""
+    snap = {k: v.detach().clone() for k, v in state.items()}
+    ready = None
+    if device.type == "cuda":
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(device))
+    return snap, ready
+
+
+def host_state(snap: Dict[str, torch.Tensor], ready, stream=None) -> Dict:
+    """A :func:`snapshot` on the host.  On a card the copies run on the
+    side ``stream`` after the snapshot's event, so that they do not queue
+    behind the next epoch's steps on the stream that made it."""
+    if ready is None:
+        return snap
+    stream.wait_event(ready)
+    host = {}
+    with torch.cuda.stream(stream):
+        for k, v in snap.items():
+            host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            host[k].copy_(v, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    done.synchronize()
+    return host
 
 
 def use_resident_data(opts: TrainOptions, ds_train: SiteDataset,
@@ -391,9 +467,18 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
     """Run one training trial; returns the final metrics dict.
 
     ``report_fn(metrics) -> keep_going`` is the trial runner's hook;
-    returning False stops the trial after this epoch."""
+    returning False stops the trial after this epoch.  A data-parallel
+    trial outside a process group spawns its ranks and returns rank 0's
+    metrics (:func:`spawn_dp_trial`); inside one, this is a rank."""
     check_ported(opts, model_type)
-    printer = get_printer(False, opts.trial_training_log)
+    dp = None
+    if opts.dp_devices > 1:
+        dp = rank_context(opts.device)
+        if dp is None:
+            return spawn_dp_trial(config, opts, model_type, report_fn)
+    primary = dp is None or dp.primary
+    printer = (get_printer(False, opts.trial_training_log) if primary
+               else _silent)
     t_start = time.time()
     device = (torch.device(opts.device) if opts.device is not None
               else resolve_device())
@@ -491,6 +576,11 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
             reinit_final_fcs(model, opts.rng_seed)
     model = model.to(device)
     total_params = count_parameters(model, printer=printer)
+    if dp is not None:
+        printer(f"data-parallel training over {dp.world} devices "
+                f"({dp.backend})")
+        if dp.world > 1:
+            convert_batchnorm(model)
 
     # --- optimizer / schedule -----------------------------------------
     config["weight_decay"] = auto_weight_decay(
@@ -511,11 +601,21 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
         config.get("optim", "Adam"), trainable, config["weight_decay"]),
         schedule, bf16=opts.bf16)
     B = config["batch_size"]
+    shard = None                      # this rank's rows of each batch
+    if dp is not None:
+        state.grad_reduce = dp.reduce_grads
+        shard = dp.shard(B)
+        if dp.backend == "gloo" and device.type == "cuda" and k_steps > 1:
+            raise ValueError(
+                "gloo collectives on CUDA tensors cannot be captured in a "
+                f"CUDA graph: run {k_steps} steps per dispatch over NCCL, "
+                "or steps_per_dispatch 1")
     if opts.bf16:
         printer("mixed precision: bfloat16 activations in the train steps "
                 "(float32 parameters, optimizer, BatchNorm statistics and "
                 "loss reduction)")
 
+    per = B if dp is None else B // dp.world
     resident = use_resident_data(opts, ds_train, ds_valid, B, printer)
     if resident:
         res_train = make_resident(ds_train, device)
@@ -524,14 +624,16 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
         vrows_np, vmasks_np, v_n_valids = stack_epoch_rows(
             ds_valid, config["sampled_segments"], B, shuffle=False,
             pad_final=True)
-        vrows = upload_rows(vrows_np, device)
-        vmasks = torch.from_numpy(vmasks_np).to(device)
+        cols = slice(None) if shard is None else shard
+        vrows = upload_rows(vrows_np[:, cols], device)
+        vmasks = torch.from_numpy(
+            np.ascontiguousarray(vmasks_np[:, cols])).to(device)
         printer(f"device-resident data: train arena "
                 f"{res_train.arena.nbytes / 1e6:.1f} MB, valid arena "
                 f"{res_valid.arena.nbytes / 1e6:.1f} MB, "
                 f"{step_mode(k_steps, device)}")
         groups = StepGroups(state, k_steps, resident_batch(
-            res_train, use_fused_stem, torch.ones(B, device=device)))
+            res_train, use_fused_stem, torch.ones(per, device=device)))
     else:
         printer(f"host-fed batches, {step_mode(k_steps, device)}")
         groups = StepGroups(state, k_steps, host_fed_batch(use_fused_stem))
@@ -542,17 +644,25 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
            if config.get("lr_scheduler") == "ROP" else None)
     metrics: Dict = {}
     host_rng = np.random.default_rng(opts.rng_seed)
+    tail = TailThread()
+    # the tail's copies of the weights to the host
+    copy_stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                   else None)
 
     def train_rows():
         rows, _, _ = stack_epoch_rows(ds_train, config["sampled_segments"],
                                       B, shuffle=True, rng=host_rng)
-        return upload_rows(rows, device)
+        return upload_rows(rows if shard is None else rows[:, shard],
+                           device)
 
     def host_fed_epoch():
         """One epoch of batches built on the prefetch thread, in groups of
-        K; returns the loss sum on the device and the steps taken."""
+        K; returns the loss sum on the device and the steps taken.  A stop
+        reported by the previous epoch's tail ends it early (not under
+        data parallelism, whose ranks must take the same steps)."""
         batches = segment_pool_batches(ds_train, config["sampled_segments"],
-                                       B, shuffle=True, rng=host_rng)
+                                       B, shuffle=True, rng=host_rng,
+                                       shard=shard)
         # the loss accumulates on the device: no host sync per step
         total = torch.zeros((), dtype=torch.float32, device=device)
         scalars = to_device(epoch_scalars(state, train_size // B), device)
@@ -561,6 +671,8 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
         t0 = time.time()
         for db in (prefetch(batches, device) if k_steps == 1
                    else prefetch_stacked(batches, k_steps, device)):
+            if tail.stop and dp is None:
+                break
             t1 = time.time()
             fetch_t += t1 - t0
             inputs = stacked_inputs(db)
@@ -577,41 +689,74 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
 
     def host_fed_valid():
         """Validation batches built on the prefetch thread: (logits of
-        the real rows, loss sum on the device, batches)."""
+        the real rows, loss sum on the device, batches).  Under data
+        parallelism each rank runs its rows of each padded batch and the
+        logits and masks are summed into whole batches on every rank."""
         total = torch.zeros((), dtype=torch.float32, device=device)
         parts: List[torch.Tensor] = []
+        masks: List[torch.Tensor] = []
         for db in prefetch(segment_pool_batches(
                 ds_valid, config["sampled_segments"], B, shuffle=False,
-                pad_final=True), device):
+                pad_final=True, shard=shard), device):
             logits, vloss = eval_step(
                 model, db.y, db.cat,
                 model_input(db.distal, use_fused_stem, db.distal_tracks),
                 db.mask, db.cont)
             total += vloss
-            parts.append(logits[:db.n_valid])
+            parts.append(logits if dp is not None else logits[:db.n_valid])
+            masks.append(db.mask)
+        if dp is not None and parts:
+            logits = dp.gather_rows(torch.stack(parts), B)
+            parts = [logits[dp.gather_rows(torch.stack(masks), B) > 0]]
         valid_logits = (torch.cat(parts).cpu().numpy() if parts
                         else np.zeros((0, opts.n_class), np.float32))
-        return valid_logits, total, len(parts)
+        return valid_logits, total, len(masks)
 
     epoch_tail = EpochTail(opts, model_type, ds_valid, train_size,
                            total_params, printer)
+
+    def run_tail(epoch, snap, ready, valid_logits, total_loss,
+                 valid_total_loss):
+        """The tail thread's job: the snapshot to the host, then the
+        epoch tail and the runner's report; False stops the trial."""
+        nonlocal metrics
+        t0 = time.time()
+        m, eval_s = epoch_tail(epoch, host_state(snap, ready, copy_stream),
+                               config, _softmax(valid_logits), total_loss,
+                               valid_total_loss)
+        metrics = m
+        printer(f"Epoch {epoch} tail: {time.time() - t0:.3f}s on its "
+                f"thread (calibration, evaluation {eval_s:.3f}s, "
+                f"checkpoint), overlapping the next epoch")
+        if report_fn is not None and report_fn(m) is False:
+            printer("Trial stopped by scheduler")
+            return False
+        return True
 
     # the first epoch's rows; each later epoch's are drawn and uploaded
     # while the card runs the epoch before
     pending_rows = train_rows() if resident else None
     for epoch in range(opts.epochs):
+        if tail.stop and dp is None:
+            # the previous tail reported a stop: no epoch is dispatched
+            # (ranks of a data-parallel trial stop at the boundary below)
+            break
         epoch_t = time.time()
-        prof = (_start_profiler(device)
-                if opts.profile_dir is not None and epoch == 0 else None)
+        prof = (_start_profiler(device) if primary and epoch == 0
+                and opts.profile_dir is not None else None)
         if resident:
             rows = pending_rows
             n_steps = rows.shape[0]
-            total_loss_dev = resident_epoch(groups, rows, to_device(
-                epoch_scalars(state, n_steps), device)).sum()
+            losses = resident_epoch(groups, rows, to_device(
+                epoch_scalars(state, n_steps), device))
+            total_loss_dev = (losses if dp is None
+                              else dp.all_reduce_(losses)).sum()
             if epoch + 1 < opts.epochs:
                 pending_rows = train_rows()
         else:
             total_loss_dev, n_steps = host_fed_epoch()
+            if dp is not None:
+                dp.all_reduce_(total_loss_dev)
         if prof is not None:
             _stop_profiler(prof, device, opts.profile_dir)
             printer("profiler trace written to", opts.profile_dir)
@@ -624,6 +769,8 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
             logits, vloss_dev = resident_eval(model, res_valid, vrows,
                                               vmasks, use_fused_stem)
             n_valid_batches = len(v_n_valids)
+            if dp is not None and logits is not None:
+                logits = dp.gather_rows(logits, B)
             lg = (logits.cpu().numpy() if logits is not None
                   else np.zeros((0, B, opts.n_class), np.float32))
             valid_logits = (np.concatenate([lg[i, :n] for i, n in
@@ -632,16 +779,24 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
                             else np.zeros((0, opts.n_class), np.float32))
         else:
             valid_logits, vloss_dev, n_valid_batches = host_fed_valid()
+        if dp is not None:
+            dp.all_reduce_(vloss_dev)
         valid_total_loss = float(vloss_dev)
         t_valid_done = time.time()
 
-        metrics, eval_s = epoch_tail(epoch, model, config,
-                                     _softmax(valid_logits), total_loss,
-                                     valid_total_loss)
-        stop = report_fn is not None and report_fn(metrics) is False
+        # the previous epoch's tail ends before this one's starts
+        tail.join()
+        stop = tail.stop
+        if dp is not None:
+            stop = bool(dp.broadcast_flag(int(stop)))
         if stop:
-            printer("Trial stopped by scheduler")
-        current_loss = metrics["loss"]
+            break
+        if primary:
+            snap, ready = snapshot(model.state_dict(), device)
+            tail.start(run_tail, epoch, snap, ready, valid_logits,
+                       total_loss, valid_total_loss)
+        t_fetch_done = time.time()
+        current_loss = valid_total_loss / max(valid_size, 1)
         es(current_loss)
         if es.early_stop:
             printer("Early stopping")
@@ -653,16 +808,46 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
         printer(f"Epoch {epoch} used time: {now - epoch_t:.3f}s "
                 f"(train {n_steps} steps in {t_train_done - epoch_t:.3f}s, "
                 f"valid {n_valid_batches} batches in "
-                f"{t_valid_done - t_train_done:.3f}s, calib/ckpt "
-                f"{now - t_valid_done:.3f}s, of which evaluation "
-                f"{eval_s:.3f}s)")
+                f"{t_valid_done - t_train_done:.3f}s, fetch "
+                f"{t_fetch_done - t_valid_done:.3f}s; calib/eval/ckpt "
+                f"overlap the next epoch)")
         sys.stdout.flush()
-        if stop:
-            break
 
+    tail.join()
     best_epoch = metrics.get("epoch", 0) - es.counter
     printer(f"Best Epoch: {best_epoch}")
     printer(f"training finished, total time {time.time() - t_start:.1f}s")
     metrics["best_epoch"] = best_epoch
-    write_progress_csv(opts.trial_dir)
+    if primary:
+        write_progress_csv(opts.trial_dir)
     return metrics
+
+
+def _silent(*args, **kwargs) -> None:
+    """The printer of a data-parallel rank other than 0."""
+
+
+def _dp_rank_trial(ctx, config: Dict, opts: TrainOptions,
+                   model_type: str) -> Dict:
+    """A data-parallel rank's body (:func:`spawn_dp_trial`)."""
+    return train_trial(config, dataclasses.replace(opts, device=ctx.device),
+                       model_type, report_fn=ctx.report)
+
+
+def spawn_dp_trial(config: Dict, opts: TrainOptions, model_type: str,
+                   report_fn: Optional[Callable] = None) -> Dict:
+    """Run a data-parallel trial as one spawned rank per device and
+    return rank 0's metrics; rank 0's reports reach ``report_fn``.
+    Raises the JAX package's errors for a batch that does not split and
+    for more devices than there are (``requested N devices, have M``)."""
+    devices = make_devices(opts.dp_devices, opts.device
+                           if opts.device is not None else resolve_device())
+    if config["batch_size"] % len(devices):
+        raise ValueError(f"batch_size {config['batch_size']} must be "
+                         f"divisible by dp_devices {len(devices)}")
+    # every rank draws the same split
+    split_seed = (opts.split_seed if opts.split_seed is not None
+                  else int(np.random.randint(0, 10000)))
+    return spawn_ranks(_dp_rank_trial, devices, (
+        config, dataclasses.replace(opts, split_seed=split_seed),
+        model_type), report_fn=report_fn)[0]

@@ -6,7 +6,9 @@ statistics, dropout), masked CE-sum (the reference's
 ``CrossEntropyLoss(reduction='sum')``), backward, ``clip_grad_norm_(...,
 10)``, then ``optimizer.step()`` at the LR the optimizer holds.  torch's
 clip adds 1e-6 to the norm, optax's does not: when clipping fires the two
-scale the gradient about 1e-7 apart.
+scale the gradient about 1e-7 apart.  In a data-parallel step each rank
+runs this on its shard and the gradients are SUMmed over the ranks
+between ``backward`` and the clip (``TrainState.grad_reduce``).
 
 With ``bf16`` (``--bf16``, the JAX package's ``steps.py:39-60`` and
 ``packed.py:159-220``) the forward runs under a bfloat16
@@ -72,6 +74,9 @@ class TrainState:
         self.step = 0
         self.epoch = 0
         self.rop_lr = schedule.base_lr
+        # data parallelism: SUMs the gradients over the ranks in place
+        # (parallel/distributed.py RankContext.reduce_grads)
+        self.grad_reduce = None
 
     def lr(self) -> float:
         return self.schedule.lr_at(self.step, self.epoch, self.rop_lr)
@@ -100,6 +105,9 @@ def step_update(state: TrainState, y: torch.Tensor, cat: torch.Tensor,
     # clip norm although the optimizer holds only the trainable ones
     model.zero_grad(set_to_none=True)
     loss.backward()
+    if state.grad_reduce is not None:
+        # before the clip: every rank clips by the global norm
+        state.grad_reduce(model.parameters())
     torch.nn.utils.clip_grad_norm_(model.parameters(), GRAD_CLIP)
     state.optimizer.step()
     return loss.detach()

@@ -13,7 +13,13 @@ Each member writes its trial directory as a serial trial would
 model.config.pkl, model.fdiri_cal.pkl}`` with ``epoch_<n>_metrics.txt``,
 ``progress.csv``, and ``error.txt`` when its tail fails), reports each
 epoch to the runner's stop rule and scheduler, and stops early on its
-own; its epoch tail runs inline, in the serial loop's order.  A group
+own.  The members' epoch tails run one after the other on a thread
+while the group trains its next epoch (the serial loop's
+``TailThread``), early stopping and ROP on the main thread; a member
+stopped by its tail's report has trained on through the next epoch
+(the live mask was set before the report) and gets that epoch's
+weights back at the join, so its final weights are its last
+checkpoint's.  A group
 falls back to serial trials where the JAX package's does: per-base
 track channels, fewer training sites than a batch, or data over the
 resident budget (:func:`run_ensemble_group` returns None).
@@ -106,9 +112,11 @@ def run_ensemble_group(group: List[Tuple[str, Dict]], base_opts,
                                                 ensemble_eval,
                                                 ensemble_step_update)
     from mural_tpu_torch.train.graphs import StepGroups, steps_per_dispatch
-    from mural_tpu_torch.train.loop import (EpochTail, _check_classes,
-                                            _softmax, check_ported,
+    from mural_tpu_torch.train.loop import (EpochTail, TailThread,
+                                            _check_classes, _softmax,
+                                            check_ported, host_state,
                                             init_model, seed_device,
+                                            snapshot,
                                             split_segments_like_torch,
                                             step_mode)
     from mural_tpu_torch.train.optim import LRSchedule, ReduceLROnPlateau
@@ -204,9 +212,8 @@ def run_ensemble_group(group: List[Tuple[str, Dict]], base_opts,
     models = [init_model(build_model(opts.model_no, configs[t], common,
                                      model_type), ds, seeds[t])
               for t in range(T)]
-    host_model = models[0]             # a member's weights, for its tail
     for t in range(T):
-        total_params = count_parameters(host_model, printer=printers[t])
+        total_params = count_parameters(models[0], printer=printers[t])
         printers[t]("train_size, valid_size:", train_size, valid_size)
         printers[t]("weight_decay:", configs[t]["weight_decay"])
     schedules = [LRSchedule.build(
@@ -218,7 +225,6 @@ def run_ensemble_group(group: List[Tuple[str, Dict]], base_opts,
                         arch.get("optim", "Adam"),
                         [c["weight_decay"] for c in configs], schedules,
                         bf16=opts.bf16)
-    host_model.cpu()
     res_train = make_resident(ds_train, device)
     res_valid = make_resident(ds_valid, device)
     k_steps = steps_per_dispatch(opts.steps_per_dispatch, model_type)
@@ -252,40 +258,46 @@ def run_ensemble_group(group: List[Tuple[str, Dict]], base_opts,
     metrics_list: List[Dict] = [{} for _ in range(T)]
     iteration = [0] * T
 
-    def member_epoch(t, epoch, valid_probs, total_loss, valid_loss, times):
-        """Member t's tail, report, early stopping and ROP, in the serial
-        loop's order and with its log lines; sets ``stopped[t]`` when the
-        member ends here.  ``times``: the group's epoch start, train and
-        validation seconds."""
+    tail = TailThread()
+    # the tails' copies of the members' weights to the host
+    copy_stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                   else None)
+
+    def member_tail(t, epoch, state, valid_probs, total_loss, valid_loss):
+        """Member t's tail and report, in the serial tail's order; a stop
+        or an error sets ``stopped[t]``."""
         p = printers[t]
-        t_tail = time.time()
-        p("optimizer learning rate:", schedules[t].lr_at(
-            ens.step, ens.epoch, ens.rop_lr[t]))
-        host_model.load_state_dict(ens.member_state_dict(t))
-        m, eval_s = tails[t](epoch, host_model, configs[t], valid_probs,
+        t0 = time.time()
+        m, eval_s = tails[t](epoch, state, configs[t], valid_probs,
                              total_loss, valid_loss)
         metrics_list[t] = m
         iteration[t] += 1
         if progress is not None:
             progress.update(trial_ids[t], "RUNNING", iteration[t], m)
-        stop = not _keep_going(trial_ids[t], iteration[t], m, scheduler)
-        if stop:
+        p(f"Epoch {epoch} tail: {time.time() - t0:.3f}s on its thread "
+          f"(calibration, evaluation {eval_s:.3f}s, checkpoint), "
+          f"overlapping the next epoch")
+        if not _keep_going(trial_ids[t], iteration[t], m, scheduler):
             p("Trial stopped by scheduler")
-        es_list[t](m["loss"])
-        if es_list[t].early_stop:
-            p("Early stopping")
             stopped[t] = True
-            return
-        if rops[t] is not None:
-            ens.rop_lr[t] = rops[t].step(m["loss"])
-        epoch_t, train_s, valid_s = times
-        now = time.time()
-        p(f"Epoch {epoch} used time: {now - epoch_t:.3f}s (train "
-          f"{n_steps} steps in {train_s:.3f}s, valid {len(v_n_valids)} "
-          f"batches in {valid_s:.3f}s, calib/ckpt {now - t_tail:.3f}s, of "
-          f"which evaluation {eval_s:.3f}s)")
-        stopped[t] = stop
 
+    def run_tails(epoch, live, snaps, probs, losses_np, vloss_np):
+        """The tails of epoch ``epoch``'s live members, one after the
+        other on the tail thread (``mural_tpu/tune/ensemble.py:
+        349-418``); a member's failure is its own."""
+        for t in live:
+            try:
+                member_tail(t, epoch, host_state(*snaps[t], copy_stream),
+                            probs[t], float(losses_np[t]),
+                            float(vloss_np[t]))
+            except Exception as err:
+                errors[t] = err
+                stopped[t] = True
+                with open(os.path.join(member_opts[t].trial_dir,
+                                       "error.txt"), "w") as fh:
+                    fh.write(traceback.format_exc())
+
+    snaps: Dict[int, Dict] = {}
     pending_rows = train_rows()
     for epoch in range(exp.epochs):
         if all(stopped):
@@ -301,24 +313,46 @@ def run_ensemble_group(group: List[Tuple[str, Dict]], base_opts,
         t_train = time.time() - epoch_t
         logits, vloss = ensemble_eval(ens, res_valid, vrows, vmasks)
         vloss_np = vloss.cpu().numpy().astype(np.float64)
-        times = (epoch_t, t_train, time.time() - epoch_t - t_train)
         lg = (logits.cpu().numpy() if logits is not None
               else np.zeros((T, 0, B, opts.n_class), np.float32))
+        t_valid = time.time() - epoch_t - t_train
+        # the previous epoch's tails end before these start; a member
+        # its tail stopped trained through this epoch (the live mask was
+        # set before its report): it gets back that epoch's weights
+        tail.join()
+        for t in range(T):
+            if stopped[t] and t in snaps:
+                ens.load_member_state(t, snaps[t][0])
         live = [t for t in range(T) if not stopped[t]]
+        if not live:
+            break
+        snaps = {t: snapshot(ens.member_state_dict(t), device)
+                 for t in live}
+        probs = {t: _softmax(np.concatenate(
+            [lg[t, i, :n] for i, n in enumerate(v_n_valids)])
+            if v_n_valids else np.zeros((0, opts.n_class), np.float32))
+            for t in live}
         for t in live:
-            valid_logits = (np.concatenate([lg[t, i, :n] for i, n in
-                                            enumerate(v_n_valids)])
-                            if v_n_valids
-                            else np.zeros((0, opts.n_class), np.float32))
-            try:
-                member_epoch(t, epoch, _softmax(valid_logits),
-                             float(losses_np[t]), float(vloss_np[t]), times)
-            except Exception as err:       # this member's failure only
-                errors[t] = err
+            printers[t]("optimizer learning rate:", schedules[t].lr_at(
+                ens.step, ens.epoch, ens.rop_lr[t]))
+        tail.start(run_tails, epoch, live, snaps, probs, losses_np,
+                   vloss_np)
+        t_fetch = time.time() - epoch_t - t_train - t_valid
+        # early stopping and ROP on this epoch's loss, on this thread
+        for t in live:
+            p = printers[t]
+            current_loss = float(vloss_np[t]) / max(valid_size, 1)
+            es_list[t](current_loss)
+            if es_list[t].early_stop:
+                p("Early stopping")
                 stopped[t] = True
-                with open(os.path.join(member_opts[t].trial_dir,
-                                       "error.txt"), "w") as fh:
-                    fh.write(traceback.format_exc())
+                continue
+            if rops[t] is not None:
+                ens.rop_lr[t] = rops[t].step(current_loss)
+            p(f"Epoch {epoch} used time: {time.time() - epoch_t:.3f}s "
+              f"(train {n_steps} steps in {t_train:.3f}s, valid "
+              f"{len(v_n_valids)} batches in {t_valid:.3f}s, fetch "
+              f"{t_fetch:.3f}s; calib/eval/ckpt overlap the next epoch)")
         ens.live.copy_(torch.tensor([not s for s in stopped],
                                     device=device))
         ens.epoch += 1
@@ -329,6 +363,10 @@ def run_ensemble_group(group: List[Tuple[str, Dict]], base_opts,
                 + " ".join(f"{v / max(valid_size, 1):.4f}"
                            for v in vloss_np))
 
+    tail.join()
+    for t in range(T):
+        if stopped[t] and t in snaps:
+            ens.load_member_state(t, snaps[t][0])
     results = []
     for t in range(T):
         best_epoch = metrics_list[t].get("epoch", 0) - es_list[t].counter

@@ -257,9 +257,13 @@ def test_errors(inputs, tmp_path, monkeypatch):
     path = inputs["triples"]["snv"]
     opts = _opts(GenomePredictOptions, inputs, "snv",
                  str(tmp_path / "o.tsv.gz"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 10"):
-        run_genome_predict(GenomePredictOptions(
-            **{**opts.__dict__, "n_devices": 2}), "snv")
+    # --n_devices 2 runs now: two CPU replicas write the rows of one
+    run_genome_predict(opts, "snv", printer=lambda *a: None)
+    two = str(tmp_path / "o2.tsv.gz")
+    run_genome_predict(GenomePredictOptions(
+        **{**opts.__dict__, "n_devices": 2, "pred_file": two}), "snv",
+        printer=lambda *a: None)
+    _assert_close(_read(two), _read(opts.pred_file))
     with open(path + ".config.pkl", "rb") as fh:
         config = pickle.load(fh)
     cont_config = str(tmp_path / "cont.config.pkl")

@@ -5,6 +5,8 @@ that raise or reach the trial runner and the options that raise as in
 the JAX package.  The train step is in ``test_torch_port_train_step.py``
 and one epoch of ``train_trial`` with the CLI drive in
 ``test_torch_port_train_trial.py``; both take ``CONFIG`` from here."""
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -121,14 +123,36 @@ def test_calibrate_prob_matches_jax(name):
 
 
 # ``--bf16`` and ``--trial_ensemble auto`` run now
-# (test_cli_train_runtime_flags_run); the cases keep their ids
+# (test_cli_train_runtime_flags_run) and ``--dp_devices 2`` trains here
+# on two CPU ranks (item None); the cases keep their ids
 @pytest.mark.parametrize("flag,item", [
     pytest.param(["--with_h5"], 4, id="flag1-4"),
-    pytest.param(["--dp_devices", "2"], 10, id="flag2-10")])
-def test_cli_train_flags_not_ported_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
-        port_cli(["train", "--ref_genome", "seq.fa", "--train_data",
-                  "sites.bed", *flag])
+    pytest.param(["--dp_devices", "2"], None, id="flag2-10")])
+def test_cli_train_flags_not_ported_raise(small_data, tmp_path, monkeypatch,
+                                          flag, item):
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md item {item}"):
+            port_cli(["train", "--ref_genome", "seq.fa", "--train_data",
+                      "sites.bed", *flag])
+        return
+    fasta, bed = small_data
+    monkeypatch.chdir(tmp_path)
+    assert port_cli([
+        "train", "--ref_genome", fasta, "--train_data", bed,
+        "--experiment_name", "t", "--n_trials", "1", "--epochs", "1",
+        "--cpu_only", "--batch_size", "32", "--CNN_out_channels", "8",
+        "--local_hidden1_size", "30", "--local_hidden2_size", "10",
+        "--valid_ratio", "0.2", "--split_seed", "0", "--segment_center",
+        "2000", *flag]) == 0
+    trial = next((tmp_path / "results" / "t").glob("Train_*"))
+    text = (trial / "training.log").read_text()
+    assert "data-parallel training over 2 devices (gloo)" in text
+    assert "Epoch 0 used time" in text and "Best Epoch: 0" in text
+    assert not (trial / "error.txt").exists()
+    assert sorted(os.listdir(trial / "checkpoint_0")) == [
+        "epoch_0_metrics.txt", "model", "model.config.pkl",
+        "model.fdiri_cal.pkl"]
 
 
 @pytest.fixture(scope="module")
