@@ -213,10 +213,28 @@ Phases (any failure raises and the script exits non-zero):
     on`` through the CLI (three triples, metrics files and
     ``progress.csv`` rows; each epoch's seconds split into train, valid
     and the snapshot fetch beside its tail's seconds on its thread);
-14. last, after phase 16: a JSON line of the kernels (with
+17. the site-table cache (``--with_h5``, read and written without h5py)
+    and the last modules: one spawned shard writer's start-up seconds
+    (it must start without torch); ``mural_snv predict --fused_inference
+    --with_h5`` on phase 6's sites, cold (writes the cache) and warm
+    ("using cached site encodings:"), then cold with ``--n_h5_files 4``
+    into a fresh directory (4 shards and a master), each TSV equal to
+    phase 6's fused TSV once decompressed and K1 twice per batch in each;
+    ``mural_snv train --fused_stem on --with_h5 --epochs 1`` on phase
+    10's 20,000 sites, cold then warm, with deterministic cuDNN (the
+    warm run reads the cache, the epoch-0 train losses within 1e-4
+    relative, K2/K3 twice per step); ``mural_indel predict --with_h5`` on
+    phase 9's 50,000 sites, cold then warm (equal TSVs, no K1-K3 launch);
+    each run's preprocess seconds, and each cache's load and write
+    seconds; the losses of ``train/losses.py`` on the card against the
+    CPU at B=4096 with 4 and 8 classes (values within 1e-5 relative,
+    gradients within 1e-5 of the largest entry); the four calibrators of
+    ``calibrate/extra.py`` fitted on the host to 50,000 of phase 6's
+    probabilities (finite, summing to 1, their pickles loading back);
+14. last, after phase 17: a JSON line of the kernels (with
     ``launches_phase11``, ``launches_phase12``, ``launches_phase13``,
-    ``launches_phase16``, the bf16 mode's records with
-    ``launches_phase15``) and a timing line.
+    ``launches_phase16``, ``launches_phase17``, the bf16 mode's records
+    with ``launches_phase15``) and a timing line.
 
 The last line of standard output is the device record
 ``{"ok": true, "device": {...}}``.  ``--only_kernels`` runs the setup
@@ -3597,9 +3615,348 @@ def phase_parallel(work, fasta, bed, family_bed, indel_bed, model_path,
     return out
 
 
+# --- phase 17: the site-table cache and the last modules -----------------
+
+LOSS_BATCH = 4096       # rows of the losses' card-vs-CPU check
+TOL_LOSSES = 1e-5       # values relative; gradients of the largest entry
+CAL_ROWS = 50_000       # rows of phase 6's predictions the calibrators fit
+_PREPROCESS = re.compile(r"(?:test|training) set preprocess (?:used )?"
+                         r"time: ([\d.]+)")
+
+
+def preprocess_s(lines):
+    """The seconds of the run's preprocess line (cache write or read
+    included)."""
+    return next((float(m[1]) for m in map(_PREPROCESS.search, lines) if m),
+                None)
+
+
+def tsv_text(path):
+    with gzip.open(path, "rt") as fh:
+        return fh.read()
+
+
+def shard_probe():
+    """Run in a spawned process, as a cache shard writer is: the seconds
+    to import the cache module and whether torch came with it."""
+    t0 = time.perf_counter()
+    import mural_tpu_torch.data.cache  # noqa: F401
+    return time.perf_counter() - t0, "torch" in sys.modules
+
+
+def shard_process_start():
+    """Seconds from creating a one-process spawn pool to the result of
+    ``shard_probe`` in it: what one shard writer costs to start on this
+    host."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as pool:
+        import_s, torch_loaded = pool.submit(shard_probe).result()
+    return {"start_s": time.perf_counter() - t0, "import_s": import_s,
+            "torch_loaded": torch_loaded}
+
+
+def cache_io(h5_dir: Path, fasta, n_files, work):
+    """Seconds of the cache functions on the cache in ``h5_dir``: its
+    load, and a fresh write of the loaded dataset with ``n_files``
+    files."""
+    from mural_tpu_torch.data import cache
+    from mural_tpu_torch.genome.fasta import Genome
+    (path,) = h5_dir.glob("*.sites.h5")
+    genome = Genome.from_fasta(fasta)
+    t0 = time.perf_counter()
+    # the encoding parameters are not in the file and time nothing
+    ds = cache.load_dataset_cache(str(path), genome, 0, 0, 0, 0)
+    read_s = time.perf_counter() - t0
+    out = work / "cache_io" / path.name
+    t0 = time.perf_counter()
+    cache.save_dataset_cache(ds, str(out), n_files)
+    write_s = time.perf_counter() - t0
+    shutil.rmtree(out.parent)
+    return {"read_s": read_s, "write_s": write_s, "n_sites": ds.n_sites,
+            "n_files": n_files}
+
+
+def cache_files(h5_dir: Path):
+    return sorted(p.name for p in h5_dir.iterdir()) if h5_dir.exists() \
+        else []
+
+
+def phase_cache_predict(work, fasta, bed, model_path, n_sites, cuda_id):
+    """``predict --fused_inference --with_h5`` cold, warm, and cold with
+    4 shards; each TSV equal to phase 6's fused TSV once decompressed."""
+    from mural_tpu_torch.cli.mural_snv import main as cli
+    common = ["--ref_genome", fasta, "--test_data", bed,
+              "--model_path", model_path,
+              "--model_config_path", model_path + ".config.pkl",
+              "--calibrator_path", model_path + ".fdiri_cal.pkl",
+              "--pred_batch_size", str(BATCH), "--cuda_id", str(cuda_id),
+              "--fused_inference", "--with_h5"]
+    want = tsv_text(work / "pred_fused.tsv.gz")
+    runs = {}
+    for name, h5, extra in (("cold", "h5_snv", []), ("warm", "h5_snv", []),
+                            ("cold_4_files", "h5_snv4",
+                             ["--n_h5_files", "4"])):
+        out = work / f"pred_h5_{name}.tsv.gz"
+        run = cli_predict(cli, common, str(out),
+                          ["--h5f_path", str(work / h5), *extra])
+        runs[name] = {"rc": run["rc"], "seconds": run["seconds"],
+                      "launches": run["launches"],
+                      "preprocess_s": preprocess_s(run["lines"]),
+                      "lines": run["lines"],
+                      "same_tsv": tsv_text(out) == want,
+                      "files": cache_files(work / h5)}
+        log(f"predict --with_h5 {name}: {run['seconds']:.3f} s, test set "
+            f"preprocess {runs[name]['preprocess_s']} s, K1 launches "
+            f"{run['launches']}, cache files {runs[name]['files']}")
+    n_batches = math.ceil(n_sites / BATCH)
+    cold, warm, sharded = runs["cold"], runs["warm"], runs["cold_4_files"]
+    masters = [f for f in sharded["files"] if f.endswith(".sites.h5")]
+    check_all("predict --fused_inference --with_h5", {
+        "exit codes 0": all(r["rc"] == 0 for r in runs.values()),
+        "the cold runs wrote the cache": any(
+            line.startswith("wrote site-encoding cache (1 file(s)):")
+            for line in cold["lines"]) and any(
+            line.startswith("wrote site-encoding cache (4 file(s)):")
+            for line in sharded["lines"]),
+        "the warm run used it": any(
+            line.startswith("using cached site encodings:")
+            for line in warm["lines"]),
+        "one file; 4 shards and a master": len(cold["files"]) == 1
+        and len(masters) == 1 and sharded["files"] == sorted(
+            masters + [f"{masters[0]}.part{k:02d}of04" for k in range(4)]),
+        "each TSV equal to phase 6's fused TSV": all(
+            r["same_tsv"] for r in runs.values()),
+        f"K1 launched 2 x {n_batches} batches in each run": all(
+            r["launches"] == 2 * n_batches for r in runs.values()),
+    })
+    for r in runs.values():
+        del r["lines"]
+    return runs
+
+
+def phase_cache_train(work, fasta, family_bed, cuda_id):
+    """``train --fused_stem on --with_h5 --epochs 1`` cold, then warm, with
+    deterministic cuDNN: the warm run reads the cache and its epoch-0
+    train loss equals the cold run's within 1e-4 relative."""
+    from mural_tpu_torch.cli.mural_snv import main as cli
+    h5 = work / "h5_train"
+    runs = {}
+    with deterministic_cudnn():
+        for name in ("cold", "warm"):
+            run = cli_train(cli, work, fasta, family_bed, f"h5_{name}",
+                            cuda_id, ["--fused_stem", "on", "--epochs", "1",
+                                      "--with_h5", "--h5f_path", str(h5)])
+            text = (run["trial"] / "training.log").read_text().splitlines()
+            losses = [float(line.split(":", 1)[1]) for line in text
+                      if line.startswith("Training Loss:")]
+            runs[name] = {"rc": run["rc"], "seconds": run["seconds"],
+                          "preprocess_s": preprocess_s(text),
+                          "train_loss": losses[0] if losses else None,
+                          "epochs": run["epochs"], "k2": run["k2"],
+                          "k3": run["k3"], "log": text}
+            log(f"train --with_h5 {name}: {run['seconds']:.3f} s, training "
+                f"set preprocess {runs[name]['preprocess_s']} s, epoch-0 "
+                f"train loss {runs[name]['train_loss']}, K2/K3 "
+                f"{run['k2']}/{run['k3']}")
+    cold, warm = runs["cold"], runs["warm"]
+    launches_ok = all(
+        len(r["epochs"]) == 1
+        and r["k2"] == 2 * (r["epochs"][0]["train_steps"]
+                            + r["epochs"][0]["valid_batches"])
+        and r["k3"] == 2 * r["epochs"][0]["train_steps"]
+        for r in runs.values())
+    check_all("train --fused_stem on --with_h5", {
+        "exit codes 0": cold["rc"] == 0 and warm["rc"] == 0,
+        "the cold run wrote the cache": any(
+            line.startswith("wrote site-encoding cache (1 file(s)):")
+            for line in cold["log"]),
+        "the warm run used it": any(
+            line.startswith("using cached site encodings:")
+            for line in warm["log"]),
+        "K2 twice per train step and validation batch, K3 twice per train "
+        "step": launches_ok,
+        "epoch-0 train losses within 1e-4 relative":
+            cold["train_loss"] is not None and warm["train_loss"] is not None
+            and abs(warm["train_loss"] - cold["train_loss"])
+            <= 1e-4 * abs(cold["train_loss"]),
+    })
+    for r in runs.values():
+        del r["log"]
+    return runs
+
+
+def phase_cache_indel(work, fasta, bed, model_path, cuda_id):
+    """``mural_indel predict --with_h5`` cold, then warm: equal TSVs and
+    no launch of K1-K3."""
+    from mural_tpu_torch.cli.mural_indel import main as cli
+    common = ["--ref_genome", fasta, "--test_data", bed,
+              "--model_path", model_path,
+              "--model_config_path", model_path + ".config.pkl",
+              "--calibrator_path", model_path + ".fdiri_cal.pkl",
+              "--pred_batch_size", str(INDEL_PRED_BATCH), "--cuda_id",
+              str(cuda_id), "--with_h5", "--h5f_path",
+              str(work / "h5_indel")]
+    runs, texts = {}, {}
+    for name in ("cold", "warm"):
+        out = work / f"indel_h5_{name}.tsv.gz"
+        (run, counts) = counted(cli_predict, cli, common, str(out))
+        texts[name] = tsv_text(out)
+        runs[name] = {"rc": run["rc"], "seconds": run["seconds"],
+                      "preprocess_s": preprocess_s(run["lines"]),
+                      "rows": len(run["tsv"][1]), "launches": counts,
+                      "lines": run["lines"]}
+        log(f"mural_indel predict --with_h5 {name}: {run['seconds']:.3f} s, "
+            f"test set preprocess {runs[name]['preprocess_s']} s")
+    cold, warm = runs["cold"], runs["warm"]
+    check_all("mural_indel predict --with_h5", {
+        "exit codes 0": cold["rc"] == 0 and warm["rc"] == 0,
+        "the cold run wrote the cache, the warm run used it": any(
+            line.startswith("wrote site-encoding cache (1 file(s)):")
+            for line in cold["lines"]) and any(
+            line.startswith("using cached site encodings:")
+            for line in warm["lines"]),
+        f"{INDEL_SITES} rows": cold["rows"] == INDEL_SITES,
+        "equal TSVs": texts["cold"] == texts["warm"],
+        "K1, K2 and K3 launched 0 times": all(
+            r["launches"] == (0, 0, 0) for r in runs.values()),
+    })
+    for r in runs.values():
+        del r["lines"]
+    return runs
+
+
+def phase_losses(dev, seed):
+    """The port's losses on the card against the same call on the CPU,
+    B=4096 with 4 and 8 classes: values within 1e-5 relative, gradients
+    in the logits within 1e-5 of their largest entry."""
+    import torch
+    from mural_tpu_torch.train import losses
+    rng = np.random.default_rng(seed + 17)
+    out = {}
+    for k in (4, 8):
+        logits = rng.normal(size=(LOSS_BATCH, k)).astype(np.float32)
+        labels = torch.from_numpy(rng.integers(0, k, LOSS_BATCH))
+        counts = np.bincount(labels.numpy(), minlength=k) * 10 + 3
+        one_hot = torch.eye(k)[labels]
+        alpha = torch.from_numpy(rng.uniform(0.2, 2.0, (LOSS_BATCH, k))
+                                 .astype(np.float32))
+        calls = {
+            "focal_ce_loss": lambda x, d: losses.focal_ce_loss(
+                x, labels.to(d), 2.0),
+            "sigmoid_focal_loss": lambda x, d: losses.sigmoid_focal_loss(
+                one_hot.to(d), x, alpha.to(d), 2.0)}
+        for kind in ("sigmoid", "focal", "softmax"):
+            calls[f"class_balanced_loss_{kind}"] = (
+                lambda kind: lambda x, d: losses.class_balanced_loss(
+                    x, labels.to(d), counts, k, kind, 0.9999, 2.0))(kind)
+        for name, fn in calls.items():
+            res = []
+            for d in ("cpu", dev):
+                x = torch.tensor(logits, device=d, requires_grad=True)
+                value = fn(x, d)
+                value.backward()
+                res.append((value.item(), x.grad.cpu().numpy()))
+            (v_cpu, g_cpu), (v_dev, g_dev) = res
+            out[f"{name}_{k}"] = {
+                "value": v_dev,
+                "value_rel": abs(v_dev - v_cpu) / abs(v_cpu),
+                "grad_rel": float(np.abs(g_dev - g_cpu).max()
+                                  / np.abs(g_cpu).max())}
+    log("losses, card against CPU: " + json.dumps(out))
+    check_all("losses on the card", {
+        f"{name}: value and gradient within {TOL_LOSSES}":
+            r["value_rel"] <= TOL_LOSSES and r["grad_rel"] <= TOL_LOSSES
+            for name, r in out.items()})
+    return out
+
+
+def phase_extra_calibrators(work, pred_file):
+    """The four extra calibrators fitted on the host to phase 6's fused
+    probabilities and observed classes (the first CAL_ROWS rows):
+    probabilities finite and summing to 1; each pickle loads back through
+    ``load_calibrator`` with the same probabilities."""
+    from mural_tpu_torch.calibrate import extra
+    from mural_tpu_torch.train.checkpoint import load_calibrator
+    _, keys, probs = read_tsv(pred_file)
+    y = np.asarray([int(k[4]) for k in keys[:CAL_ROWS]])
+    probs = probs[:CAL_ROWS]
+    logits = np.log(np.clip(probs, 1e-12, 1))
+    out, checks = {}, {}
+    for name, cal, X in (
+            ("DiagDirichlet", extra.DiagDirichlet(), probs),
+            ("FixedDiagDirichlet", extra.FixedDiagDirichlet(), probs),
+            ("MatrixScaling", extra.MatrixScaling(), logits),
+            ("DirichletCalibrator", extra.DirichletCalibrator(
+                "diagonal", l2=1e-3), probs)):
+        t0 = time.perf_counter()
+        cal.fit(X, y)
+        fit_s = time.perf_counter() - t0
+        p = cal.predict_proba(X)
+        path = work / f"{name}.pkl"
+        path.write_bytes(pickle.dumps(cal))
+        same = np.array_equal(load_calibrator(str(path)).predict_proba(X),
+                              p)
+        out[name] = {"fit_s": fit_s, "max_sum_err": float(
+            np.abs(p.sum(1) - 1).max())}
+        checks[f"{name}: finite, summing to 1 within 1e-9, pickle loads"] = (
+            bool(np.isfinite(p).all()) and out[name]["max_sum_err"] <= 1e-9
+            and same)
+    log("extra calibrators: " + json.dumps(out))
+    check_all("extra calibrators", checks)
+    return out
+
+
+def phase_cache(work, fasta, bed, family_bed, model_path, indel_path,
+                indel_bed, n_sites, dev, seed):
+    """Phase 17: the site-table cache on BED predict, train and INDEL
+    predict, a shard writer's start-up, the cache's own read and write
+    seconds, and the last modules (losses, extra calibrators)."""
+    cuda_id = dev.index or 0
+    part_s = {}
+    t0 = time.perf_counter()
+    start = shard_process_start()
+    log("one spawned shard writer's start: " + json.dumps(start))
+    check_all("shard writer", {"starts without torch":
+                               not start["torch_loaded"]})
+    part_s["shard_start"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    predict = phase_cache_predict(work, fasta, bed, model_path, n_sites,
+                                  cuda_id)
+    part_s["predict"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train = phase_cache_train(work, fasta, family_bed, cuda_id)
+    part_s["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    indel = phase_cache_indel(work, fasta, indel_bed, model_path=indel_path,
+                              cuda_id=cuda_id)
+    part_s["indel"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    io_s = {name: cache_io(work / h5, fasta, n_files, work)
+            for name, h5, n_files in (
+                ("snv_predict", "h5_snv", 1),
+                ("snv_predict_4_files", "h5_snv4", 4),
+                ("snv_train", "h5_train", 1),
+                ("indel_predict", "h5_indel", 1))}
+    log("cache read and write seconds: " + json.dumps(io_s))
+    part_s["cache_io"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss = phase_losses(dev, seed)
+    part_s["losses"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cals = phase_extra_calibrators(work, str(work / "pred_fused.tsv.gz"))
+    part_s["calibrators"] = time.perf_counter() - t0
+    out = {"part_s": part_s, "shard_start": start, "predict": predict,
+           "train": train, "indel": indel, "cache_io": io_s,
+           "losses": loss, "calibrators": cals}
+    log("phase 17: " + json.dumps(out))
+    return out
+
+
 def kernel_records(k1, k23, k1_launches, train_on, family=None,
                    later=None, genome=None, fed=None, k23_bf16=None,
-                   mixed=None, parallel=None):
+                   mixed=None, parallel=None, cached=None):
     """The kernels' JSON records from phases 2-3; ``launches`` come from
     the main path's runs (None when it did not run): K1 from phase 6's
     fused predict, K2/K3 from phase 7's fused train (resident data, 8
@@ -3616,7 +3973,9 @@ def kernel_records(k1, k23, k1_launches, train_on, family=None,
     --fused_stem on`` (``mixed``), and ``launches_phase15`` from its step
     runs.  ``launches_phase16`` (``parallel``): K1 on the sharded
     predicts and genome-wide runs, K2/K3 on each data-parallel rank and
-    the overlapped-tail CLI run."""
+    the overlapped-tail CLI run.  ``launches_phase17`` (``cached``): K1 on
+    each ``predict --with_h5`` run, K2/K3 on the cold and warm ``train
+    --with_h5``."""
     p11 = None
     if later is not None:
         tr, ind = later["transfer"], later["indel_transfer"]["launches"]
@@ -3650,6 +4009,9 @@ def kernel_records(k1, k23, k1_launches, train_on, family=None,
                parallel["sharded"].items() if name != "genome"},
             **{f"genome_{n}_replicas": run["k1_launches"] for n, run in
                parallel["sharded"]["genome"].items()}},
+        "launches_phase17": cached and {
+            name: run["launches"] for name, run in
+            cached["predict"].items()},
     }, {
         "name": "code_conv_pool_fwd", "route": "cuda",
         "source": "mural_tpu_torch/ops/csrc/code_conv_pool.cu",
@@ -3670,6 +4032,8 @@ def kernel_records(k1, k23, k1_launches, train_on, family=None,
                            parallel["dp"]["snv"]["ranks"]],
             "nccl_rank_graphs": parallel["dp"]["nccl_graphs"]["k2"],
             "tail_cli": parallel["tail"]["k2"]},
+        "launches_phase17": cached and {
+            name: run["k2"] for name, run in cached["train"].items()},
     }, {
         "name": "code_conv_pool_bwd", "route": "cuda",
         "source": "mural_tpu_torch/ops/csrc/code_conv_pool.cu",
@@ -3691,6 +4055,8 @@ def kernel_records(k1, k23, k1_launches, train_on, family=None,
                            parallel["dp"]["snv"]["ranks"]],
             "nccl_rank_graphs": parallel["dp"]["nccl_graphs"]["k3"],
             "tail_cli": parallel["tail"]["k3"]},
+        "launches_phase17": cached and {
+            name: run["k3"] for name, run in cached["train"].items()},
     }]
     if k23_bf16 is not None:
         b128 = k23_bf16["timings"][TRAIN_BATCH]
@@ -3832,12 +4198,17 @@ def main(argv=None) -> int:
     # epoch tail (K1-K3 counted from 0 around each run, in each rank)
     parallel = timed("parallel", phase_parallel, work, fasta, bed,
                      family_bed, indel_beds[1], model_path, dev, args.seed)
+    # 17. the site-table cache and the last modules (K1-K3 counted from 0
+    # around each run)
+    cached = timed("cache", phase_cache, work, fasta, bed, family_bed,
+                   model_path, indel_path, indel_beds[0], args.n_sites, dev,
+                   args.seed)
     shutil.rmtree(work, ignore_errors=True)
 
     # 14. results
     log(json.dumps({"kernels": kernel_records(
         k1, k23, fused["launches"], train_on, family, later, genome, fed,
-        k23_bf16, mixed, parallel)}))
+        k23_bf16, mixed, parallel, cached)}))
     log(json.dumps({
         "card": card, "build_s": t_build,
         "model_max_abs_err": model_err, **fwd_ms,
@@ -3861,6 +4232,7 @@ def main(argv=None) -> int:
         "k2_k3_bf16": {k: v for k, v in k23_bf16.items() if k != "timings"},
         "mixed_ensembles": mixed,
         "parallel": parallel,
+        "cache": cached,
         "n_sites": args.n_sites, "n_train": args.n_train,
         "n_indel_sites": INDEL_SITES,
         "n_indel_train": INDEL_TRAIN, "batch": BATCH,

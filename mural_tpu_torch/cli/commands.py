@@ -4,10 +4,7 @@
 ``convert``, with the JAX package's flags and defaults.
 ``--cpu_only`` and ``--cuda_id`` have their reference meaning: the run
 goes to CUDA device ``--cuda_id`` (default the current one) unless
-``--cpu_only`` is given.  Flags of options this port does not run yet
-are accepted and raise ``NotImplementedError`` naming their ROADMAP.md
-item when set (``mural_tpu_torch.train.loop.check_ported``,
-``mural_tpu_torch.cli.main.cmd_train``).
+``--cpu_only`` is given.
 """
 
 from __future__ import annotations
@@ -176,16 +173,17 @@ def _data_args(p):
     g.add_argument("--seq_only", default=False, action="store_true",
                    help="Use only genomic sequence, ignore tracks.")
     g.add_argument("--with_h5", default=False, action="store_true",
-                   help="Use the on-disk site-table cache (not ported "
-                        "yet).")
+                   help="Use the on-disk site-table cache (the "
+                        "reference's H5 pre-encoding analogue; windows "
+                        "are still encoded on the fly from uint8 codes).")
     g.add_argument("--h5f_path", type=str, metavar="FILE", default=None,
-                   help=argparse.SUPPRESS)
+                   help="Site-table cache path. Default: derived from "
+                        "the training data path.")
     g.add_argument("--n_h5_files", type=int, metavar="INT", default=1,
                    help=argparse.SUPPRESS)
     g.add_argument("--save_valid_preds", default=False,
                    action="store_true",
-                   help="Save validation predictions per checkpoint (not "
-                        "ported yet).")
+                   help="Save validation predictions per checkpoint.")
     return g
 
 
@@ -362,10 +360,12 @@ def add_predict_parser(subparsers, model_type: str):
                      action="store_true",
                      help="Log fetch/predict timing every 500 batches.")
     opt.add_argument("--with_h5", default=False, action="store_true",
-                     help="Use the on-disk site-table cache (not ported "
-                          "yet).")
+                     help="Use the on-disk site-table cache (see "
+                          "train --with_h5).")
     opt.add_argument("--h5f_path", type=str, metavar="FILE",
-                     default=None, help=argparse.SUPPRESS)
+                     default=None,
+                     help="Site-table cache path. Default: derived "
+                          "from the test data path.")
     _device_args(opt)
     opt.add_argument("--segment_center", type=int, metavar="INT",
                      default=None,

@@ -134,6 +134,8 @@ def _train_opts(args, model_type: str):
         save_valid_preds=args.save_valid_preds,
         poisson_calib=args.poisson_calib,
         with_h5=args.with_h5,
+        h5f_path=args.h5f_path,
+        n_h5_files=args.n_h5_files,
         grace_period=args.grace_period,
         dp_devices=args.dp_devices,
         profile_dir=args.profile_dir,
@@ -301,6 +303,8 @@ def cmd_predict(args, model_type: str) -> int:
         fused_inference=args.fused_inference,
         device=resolve_device(args.cpu_only, args.cuda_id),
         with_h5=args.with_h5,
+        h5f_path=_abspath(args.h5f_path),
+        n_h5_files=args.n_h5_files,
     )
     run_predict(opts, model_type)
     return 0

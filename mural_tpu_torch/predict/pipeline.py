@@ -25,6 +25,7 @@ import torch
 
 from mural_tpu_torch.calibrate.poisson import poisson_calibrate
 from mural_tpu_torch.data.batcher import segment_pool_batches
+from mural_tpu_torch.data.cache import prepare_dataset_cached
 from mural_tpu_torch.data.dataset import prepare_dataset
 from mural_tpu_torch.data.prefetch import prefetch
 from mural_tpu_torch.device import resolve_device
@@ -61,20 +62,15 @@ class PredictOptions:
     fused_inference: bool = False      # BN-folded forward + CUDA stem
     # torch device; None -> the CUDA card (RuntimeError without one)
     device: Optional[object] = None
-    with_h5: bool = False
-
-
-def _check_ported(opts: PredictOptions) -> None:
-    if opts.with_h5:
-        raise NotImplementedError(
-            "predict --with_h5 is not ported yet (ROADMAP.md item 4)")
+    with_h5: bool = False              # on-disk site-table cache
+    h5f_path: Optional[str] = None
+    n_h5_files: int = 1                # cache shard count
 
 
 def run_predict(opts: PredictOptions, model_type: str = "snv",
                 printer=print) -> Dict[str, np.ndarray]:
     """Predict every site of ``opts.test_data``; returns the output
     columns (sorted by chrom, start) and writes ``opts.pred_file``."""
-    _check_ported(opts)
     start_time = time.time()
     device = (torch.device(opts.device) if opts.device is not None
               else resolve_device())
@@ -95,14 +91,24 @@ def run_predict(opts: PredictOptions, model_type: str = "snv",
                  and not config.get("without_bw_distal", False)
                  and not seq_only)
     genome = Genome.from_fasta(opts.ref_genome)
-    ds = prepare_dataset(
-        opts.test_data, genome,
-        central_bp=opts.segment_center or config["segment_center"],
-        local_radius=config["local_radius"],
-        local_order=config["local_order"],
-        distal_radius=config["distal_radius"],
-        distal_order=config.get("distal_order", 1), model_type=model_type,
-        tracks=tracks, seq_only=seq_only, bw_distal=bw_distal)
+    segment_center = opts.segment_center or config["segment_center"]
+    if opts.with_h5:
+        ds = prepare_dataset_cached(
+            opts.test_data, genome, segment_center,
+            config["local_radius"], config["local_order"],
+            config["distal_radius"], model_type,
+            cache_dir=opts.h5f_path, tracks=tracks, seq_only=seq_only,
+            printer=printer, bw_distal=bw_distal,
+            n_files=opts.n_h5_files)
+    else:
+        ds = prepare_dataset(
+            opts.test_data, genome, central_bp=segment_center,
+            local_radius=config["local_radius"],
+            local_order=config["local_order"],
+            distal_radius=config["distal_radius"],
+            distal_order=config.get("distal_order", 1),
+            model_type=model_type, tracks=tracks, seq_only=seq_only,
+            bw_distal=bw_distal)
     printer("test set preprocess time:", time.time() - start_time)
 
     ckpt_n_cont = config.get("n_cont")

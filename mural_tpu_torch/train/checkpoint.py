@@ -99,6 +99,7 @@ def load_config(config_path: str) -> Dict:
 
 
 _DIRICHLET = "mural_tpu_torch.calibrate.dirichlet"
+_EXTRA = "mural_tpu_torch.calibrate.extra"
 _MULTINOMIAL = "mural_tpu_torch.calibrate.multinomial"
 _CLASS_MAP = {
     ("dirichletcal.calib.fulldirichlet", "FullDirichletCalibrator"):
@@ -117,6 +118,9 @@ _CLASS_MAP = {
         (_DIRICHLET, "VectorScaling"),
     ("mural_tpu.calibrate.multinomial", "MultinomialRegression"):
         (_MULTINOMIAL, "MultinomialRegression"),
+    **{("mural_tpu.calibrate.extra", name): (_EXTRA, name)
+       for name in ("DiagDirichlet", "FixedDiagDirichlet", "MatrixScaling",
+                    "DirichletCalibrator")},
 }
 
 

@@ -63,6 +63,7 @@ import torch
 from mural_tpu_torch.calibrate.fit import calibrate_prob
 from mural_tpu_torch.calibrate.poisson import poisson_calibrate
 from mural_tpu_torch.data.batcher import segment_pool_batches
+from mural_tpu_torch.data.cache import prepare_dataset_cached
 from mural_tpu_torch.data.dataset import SiteDataset, prepare_dataset
 from mural_tpu_torch.data.prefetch import (prefetch, prefetch_stacked,
                                            stacked_inputs)
@@ -93,9 +94,7 @@ from mural_tpu_torch.utils.trials import write_progress_csv
 
 @dataclasses.dataclass
 class TrainOptions:
-    """Non-searchable options (the reference's argparse ``args``).  The
-    options of the JAX package that this slice does not port are kept so
-    that a run asking for them raises (:func:`check_ported`)."""
+    """Non-searchable options (the reference's argparse ``args``)."""
     train_data: str
     ref_genome: str
     validation_data: Optional[str] = None
@@ -110,7 +109,9 @@ class TrainOptions:
     split_seed: Optional[int] = None
     save_valid_preds: bool = False
     poisson_calib: bool = False
-    with_h5: bool = False
+    with_h5: bool = False              # use the on-disk site cache
+    h5f_path: Optional[str] = None
+    n_h5_files: int = 1                # cache shard count (parallel write)
     grace_period: int = 5
     trial_dir: str = "."
     trial_training_log: Optional[str] = None
@@ -140,15 +141,12 @@ class TrainOptions:
 
 
 def check_ported(opts: TrainOptions, model_type: str = "snv") -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP.md item of each
-    option the port does not run yet.  ``--model_no`` is checked here
-    too (the JAX package's ``ValueError``), before any trial starts:
-    ``build_model`` refuses it only inside a trial, whose error goes to
-    its error.txt while the run carries on."""
+    """Check the options before any trial starts.  Every option of the
+    JAX package runs in the port; ``--model_no`` is checked here (the
+    JAX package's ``ValueError``) because ``build_model`` refuses it only
+    inside a trial, whose error goes to its error.txt while the run
+    carries on."""
     check_model_no(opts.model_no, model_type)
-    if opts.with_h5:
-        raise NotImplementedError(
-            "train --with_h5 is not ported yet (ROADMAP.md item 4)")
 
 
 def split_segments_like_torch(n_segments: int, valid_ratio: float,
@@ -513,7 +511,17 @@ def train_trial(config: Dict, opts: TrainOptions, model_type: str = "snv",
             tracks=tracks, seq_only=opts.seq_only, bw_distal=bw_distal)
 
     step_t = time.time()
-    ds = prepare(opts.train_data)
+    if opts.with_h5:
+        # only the training BED is cached, as in the JAX package
+        ds = prepare_dataset_cached(
+            opts.train_data, genome, config["segment_center"],
+            config["local_radius"], config["local_order"],
+            config["distal_radius"], model_type,
+            cache_dir=opts.h5f_path, tracks=tracks,
+            seq_only=opts.seq_only, printer=printer,
+            bw_distal=bw_distal, n_files=opts.n_h5_files)
+    else:
+        ds = prepare(opts.train_data)
     printer("training set preprocess used time:", time.time() - step_t)
     if opts.validation_data:
         printer("using given validation file:", opts.validation_data)

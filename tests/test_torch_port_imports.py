@@ -1,7 +1,8 @@
 """The port (mural_tpu_torch) and chip_smoke.py load neither JAX nor any
 module of the JAX package, nor pandas or h5py (the GPU machine has
-neither), including while they unpickle a calibrator that mural_tpu
-wrote.  Runs in a subprocess: this test process already holds jax."""
+neither), including while they unpickle calibrators that mural_tpu
+wrote (a FullDirichlet and a DiagDirichlet).  Runs in a subprocess:
+this test process already holds jax."""
 import os
 import pickle
 import subprocess
@@ -11,6 +12,7 @@ import textwrap
 import numpy as np
 
 from mural_tpu.calibrate.dirichlet import FullDirichletCalibrator
+from mural_tpu.calibrate.extra import DiagDirichlet
 from mural_tpu.calibrate.multinomial import MultinomialRegression
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -37,6 +39,11 @@ SEARCH_SLICE = [f"mural_tpu_torch.{m}" for m in (
 GENOME_SLICE = [f"mural_tpu_torch.{m}" for m in (
     "native", "ops.device_gather", "predict.post_farm",
     "predict.genome_wide", "cli.main", "cli.commands")]
+# the site-table cache, the extra calibrators and the losses
+CACHE_SLICE = [f"mural_tpu_torch.{m}" for m in (
+    "data.h5lite", "data.cache", "calibrate.extra", "train.losses",
+    "train.checkpoint", "train.loop", "predict.pipeline", "cli.main",
+    "cli.commands")]
 
 
 def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
@@ -48,6 +55,12 @@ def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
     with open(tmp_path / "cal.pkl", "wb") as fh:
         pickle.dump(cal, fh)
     np.save(tmp_path / "probs.npy", probs)
+    y = rng.integers(0, 4, 300)
+    fit_probs = rng.dirichlet(np.ones(4), size=300) + np.eye(4)[y]
+    diag = DiagDirichlet().fit(fit_probs / fit_probs.sum(1, keepdims=True),
+                               y)
+    with open(tmp_path / "diag.pkl", "wb") as fh:
+        pickle.dump(diag, fh)
 
     script = textwrap.dedent(f"""
         import importlib, pkgutil, sys
@@ -62,6 +75,10 @@ def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
         cal = load_calibrator({str(tmp_path / 'cal.pkl')!r})
         out = cal.predict_proba(np.load({str(tmp_path / 'probs.npy')!r}))
         np.save({str(tmp_path / 'out.npy')!r}, out)
+        diag = load_calibrator({str(tmp_path / 'diag.pkl')!r})
+        np.save({str(tmp_path / 'diag.npy')!r}, diag.predict_proba(
+            np.load({str(tmp_path / 'probs.npy')!r})))
+        print("DIAG", type(diag).__module__, type(diag).__name__)
         from mural_tpu_torch import native
         native.load()
         banned = sorted(m for m in sys.modules
@@ -79,13 +96,13 @@ def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     lines = dict(line.split(" ", 1) for line in res.stdout.splitlines()
-                 if line.startswith(("MODULES", "BANNED", "NAMES")))
+                 if line.startswith(("MODULES", "BANNED", "NAMES", "DIAG")))
     n_modules, cal_module = lines["MODULES"].split()
     assert int(n_modules) >= 55
     # the training, evaluation, INDEL, track, search and genome-wide
     # slices' modules are among those imported
     assert set(TRAIN_SLICE + EVAL_SLICE + INDEL_SLICE + TRACKS_SLICE
-               + SEARCH_SLICE + GENOME_SLICE) <= set(
+               + SEARCH_SLICE + GENOME_SLICE + CACHE_SLICE) <= set(
                    lines["NAMES"].split(","))
     assert cal_module == "mural_tpu_torch.calibrate.dirichlet"
     # no mural_tpu.native either (the port keeps its own copy, loaded
@@ -93,3 +110,7 @@ def test_port_imports_no_jax_and_no_mural_tpu(tmp_path):
     assert lines["BANNED"] == "[]"
     np.testing.assert_allclose(np.load(tmp_path / "out.npy"),
                                cal.predict_proba(probs), rtol=1e-12)
+    # a mural_tpu DiagDirichlet loads onto the port's class
+    assert lines["DIAG"] == "mural_tpu_torch.calibrate.extra DiagDirichlet"
+    np.testing.assert_allclose(np.load(tmp_path / "diag.npy"),
+                               diag.predict_proba(probs), rtol=1e-12)

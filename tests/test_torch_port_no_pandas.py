@@ -1,8 +1,10 @@
-"""The port's evaluation, scaling and epoch-tail paths run without pandas
-(the GPU machine has none): a subprocess that blocks ``pandas`` and
-``h5py`` trains one CPU epoch with --save_valid_preds --poisson_calib,
-then runs ``evaluate``, ``calc_scaling_factor --do_scaling`` and
-``scale`` on the validation predictions that epoch wrote."""
+"""The port's evaluation, scaling, epoch-tail and site-table cache paths
+run without pandas and h5py (the GPU machine has neither): a subprocess
+that blocks both trains one CPU epoch with --save_valid_preds
+--poisson_calib --with_h5 (writing the cache), predicts with --with_h5
+on that checkpoint (reading it), then runs ``evaluate``,
+``calc_scaling_factor --do_scaling`` and ``scale`` on the validation
+predictions that epoch wrote."""
 import os
 import subprocess
 import sys
@@ -31,10 +33,17 @@ def test_paths_run_with_pandas_blocked(tmp_path):
                      "--local_radius", "3", "--local_order", "2",
                      "--CNN_out_channels", "8", "--local_hidden1_size",
                      "30", "--local_hidden2_size", "10", "--batch_size",
-                     "32"]) == 0
+                     "32", "--with_h5", "--h5f_path", "h5"]) == 0
         import glob
         (vp,) = glob.glob("results/np/Train_*/checkpoint_0/"
                           "model.valid_preds.tsv.gz")
+        model = vp.replace(".valid_preds.tsv.gz", "")
+        assert main(["predict", "--cpu_only", "--ref_genome", {fasta!r},
+                     "--test_data", {bed!r}, "--model_path", model,
+                     "--model_config_path", model + ".config.pkl",
+                     "--calibrator_path", model + ".fdiri_cal.pkl",
+                     "--pred_file", "pred.tsv.gz", "--with_h5",
+                     "--h5f_path", "h5"]) == 0
         assert main(["evaluate", "--pred_file", vp, "--ref_genome",
                      {fasta!r}, "--out_prefix", "ev", "--window_size",
                      "5000"]) == 0
@@ -56,12 +65,16 @@ def test_paths_run_with_pandas_blocked(tmp_path):
     assert res.returncode == 0, res.stderr[-4000:]
     out = res.stdout
     assert "3mer correlation(after Poisson_cal)" in out
+    # predict found the cache that train wrote
+    assert "using cached site encodings:" in out
+    assert len(list((tmp_path / "h5").glob("sites.bed.*.sites.h5"))) == 1
     assert "scaling factor:" in out
     score = next(line for line in out.splitlines() if line.startswith(
         "SCORE "))
     assert np.isfinite(float(score.split()[1]))
     for name in ("ev.3-mer.mut_rates.tsv", "ev.3-mer.corr.txt",
-                 "ev.5Kb.mut_rates.tsv", "ev.5Kb.corr.txt", "scaled.tsv.gz"):
+                 "ev.5Kb.mut_rates.tsv", "ev.5Kb.corr.txt", "scaled.tsv.gz",
+                 "pred.tsv.gz"):
         assert (tmp_path / name).stat().st_size > 0, name
     (trial,) = (tmp_path / "results" / "np").glob("Train_*")
     assert (trial / "checkpoint_0" /

@@ -1,8 +1,8 @@
 """The port's training slice (``mural_snv train``) against the JAX
 package on the CPU, the parts outside the train step: LR schedules and
 weight decay, the segment split, the calibrator fits, the train flags
-that raise or reach the trial runner and the options that raise as in
-the JAX package.  The train step is in ``test_torch_port_train_step.py``
+that reach the trial runner and the options that raise as in the JAX
+package.  The train step is in ``test_torch_port_train_step.py``
 and one epoch of ``train_trial`` with the CLI drive in
 ``test_torch_port_train_trial.py``; both take ``CONFIG`` from here."""
 import os
@@ -122,20 +122,17 @@ def test_calibrate_prob_matches_jax(name):
     assert out[-2:] == j_out[-2:]
 
 
-# ``--bf16`` and ``--trial_ensemble auto`` run now
-# (test_cli_train_runtime_flags_run) and ``--dp_devices 2`` trains here
-# on two CPU ranks (item None); the cases keep their ids
-@pytest.mark.parametrize("flag,item", [
-    pytest.param(["--with_h5"], 4, id="flag1-4"),
-    pytest.param(["--dp_devices", "2"], None, id="flag2-10")])
+# every flag of the JAX package runs now: ``--with_h5`` trains one CPU
+# epoch through the site-table cache, and ``--dp_devices 2`` on two CPU
+# ranks; the cases keep their ids
+@pytest.mark.parametrize("flag,line", [
+    pytest.param(["--with_h5", "--h5f_path", "h5", "--n_h5_files", "2"],
+                 "wrote site-encoding cache (2 file(s)):", id="flag1-4"),
+    pytest.param(["--dp_devices", "2"],
+                 "data-parallel training over 2 devices (gloo)",
+                 id="flag2-10")])
 def test_cli_train_flags_not_ported_raise(small_data, tmp_path, monkeypatch,
-                                          flag, item):
-    if item is not None:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md item {item}"):
-            port_cli(["train", "--ref_genome", "seq.fa", "--train_data",
-                      "sites.bed", *flag])
-        return
+                                          flag, line):
     fasta, bed = small_data
     monkeypatch.chdir(tmp_path)
     assert port_cli([
@@ -147,12 +144,19 @@ def test_cli_train_flags_not_ported_raise(small_data, tmp_path, monkeypatch,
         "2000", *flag]) == 0
     trial = next((tmp_path / "results" / "t").glob("Train_*"))
     text = (trial / "training.log").read_text()
-    assert "data-parallel training over 2 devices (gloo)" in text
+    assert line in text
     assert "Epoch 0 used time" in text and "Best Epoch: 0" in text
     assert not (trial / "error.txt").exists()
     assert sorted(os.listdir(trial / "checkpoint_0")) == [
         "epoch_0_metrics.txt", "model", "model.config.pkl",
         "model.fdiri_cal.pkl"]
+    if "--with_h5" in flag:
+        # the training BED's cache (a master and 2 shards) under the
+        # relative --h5f_path, which the JAX package's loader takes
+        from mural_tpu.data.cache import is_cache_fresh
+        (master,) = (tmp_path / "h5").glob("*.sites.h5")
+        assert len(list((tmp_path / "h5").glob("*.sites.h5.part*"))) == 2
+        assert is_cache_fresh(str(master), bed)
 
 
 @pytest.fixture(scope="module")
