@@ -26,6 +26,21 @@
   :class:`~mural_tpu_torch.predict.post_farm.PostprocessFarm`
   (calibration, the native ``%.4g`` formatter, gzip; inline or in worker
   processes).
+- Spans (:mod:`mural_tpu_torch.utils.spans`) time each stage: on the
+  main thread ``genome.feed`` (the next batch, a chunk's upload, the
+  starts' copy), ``genome.issue`` (encode and forward enqueue) and
+  ``genome.flush`` (of it ``genome.drain_put_wait``), keyed by batch or
+  flush window; on the drain thread ``genome.card_wait`` and
+  ``genome.farm_submit`` (of it the farm's ``farm.queue_wait`` or
+  ``farm.inline``); ``farm.start`` and ``farm.close`` around the farm's
+  life; the farm's counters ``farm.worker_busy_s`` and
+  ``farm.rows_written`` as each chunk is written.
+- ``time_view`` (``predict_genome --pred_time_view``) turns the recorder
+  on for the run and prints, after it, a row per stage of
+  :data:`TIME_VIEW` that ran: the span's summed seconds (the drain
+  thread's rows overlap the main thread's; a label with a colon is a
+  part of the row above it), the workers' summed busy seconds, and the
+  rows written in how many chunks.
 """
 
 from __future__ import annotations
@@ -51,6 +66,7 @@ from mural_tpu_torch.ops.device_gather import (iter_code_chunks,
 from mural_tpu_torch.predict.post_farm import PostprocessFarm, auto_n_workers
 from mural_tpu_torch.train.checkpoint import (load_calibrator,
                                               load_checkpoint, load_config)
+from mural_tpu_torch.utils import spans
 
 
 @dataclasses.dataclass
@@ -75,7 +91,7 @@ class GenomePredictOptions:
                                      # post_farm.auto_n_workers
     fused_inference: bool = False    # BN-folded forward with K1 (SNVNet2)
     progress_every: int = 2000       # batches between progress lines
-    time_view: bool = False          # print the phase-timing table
+    time_view: bool = False          # print the stages' span totals
     # torch device; None -> the CUDA card (RuntimeError without one)
     device: Optional[object] = None
 
@@ -141,11 +157,59 @@ def _host_batches(genome: Genome, chroms, focal_base: str, margin: int,
                        (chrom, p[:n_valid], ng[:n_valid]))
 
 
+# the time view's rows: (label, span or counter name, unit); a span's
+# summed nanoseconds print as seconds, a counter's summed value as it is
+TIME_VIEW = (("load genome", "genome.load_genome", "ns"),
+             ("load checkpoint", "genome.load_checkpoint", "ns"),
+             ("farm start", "farm.start", "ns"),
+             ("feed", "genome.feed", "ns"),
+             ("issue", "genome.issue", "ns"),
+             ("flush", "genome.flush", "ns"),
+             ("flush: drain-queue wait", "genome.drain_put_wait", "ns"),
+             ("card wait (drain thread)", "genome.card_wait", "ns"),
+             ("farm submit (drain thread)", "genome.farm_submit", "ns"),
+             ("farm submit: queue wait", "farm.queue_wait", "ns"),
+             ("farm submit: inline postprocess", "farm.inline", "ns"),
+             ("farm workers busy (summed)", "farm.worker_busy_s", "s"),
+             ("farm close", "farm.close", "ns"),
+             ("rows written", "farm.rows_written", "rows"))
+
+
+def _time_view_row(label: str, unit: str, count: int, value: float) -> str:
+    if unit == "rows":
+        return f"  {label:<32s} {value:,.0f} in {count} chunks"
+    seconds = value / 1e9 if unit == "ns" else value
+    return f"  {label:<32s} {seconds:8.2f}s"
+
+
 def run_genome_predict(opts: GenomePredictOptions, model_type: str = "snv",
                        printer=print) -> int:
     """Predict every focal site of the genome into ``opts.pred_file``;
-    returns the number of sites written."""
+    returns the number of sites written.  With ``opts.time_view`` the
+    span recorder is on for the run and its totals are printed
+    (:data:`TIME_VIEW`)."""
     t0 = time.time()
+    if opts.time_view:
+        with spans.recording() as session:
+            total, n_workers = _map_genome(opts, model_type, printer, t0)
+        totals = spans.totals(session)
+        printer("predict_genome phase timing:")
+        for label, name, unit in TIME_VIEW:
+            if name in totals:
+                printer(_time_view_row(label, unit, *totals[name]))
+    else:
+        total, n_workers = _map_genome(opts, model_type, printer, t0)
+    rate = total / max(time.time() - t0, 1e-9)
+    printer(f"genome-wide predict: {total:,} sites in "
+            f"{time.time() - t0:.1f}s = {rate:,.0f} sites/s "
+            f"({n_workers} postprocess workers"
+            f"{' [auto]' if opts.n_workers is None else ''})")
+    return total
+
+
+def _map_genome(opts: GenomePredictOptions, model_type: str, printer,
+                t0: float):
+    """:func:`run_genome_predict`'s work: (sites written, farm workers)."""
     device = (torch.device(opts.device) if opts.device is not None
               else resolve_device())
     # --n_devices > 1: a replica per device; each chunk's codes go to
@@ -156,32 +220,25 @@ def run_genome_predict(opts: GenomePredictOptions, model_type: str = "snv",
     # the reference semantics are float32 (as predict)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    phases: dict = {}
-    last = [t0]
 
-    def _phase(name):
-        now = time.time()
-        phases[name] = now - last[0]
-        last[0] = now
+    with spans.span("genome.load_genome"):
+        config = load_config(opts.model_config_path)
+        n_class = config["n_class"]
+        if config.get("n_cont", 0):
+            raise ValueError(
+                "this checkpoint was trained with bigWig track features "
+                f"(n_cont={config['n_cont']}); genome-wide prediction "
+                "does not generate continuous features -- use `predict` "
+                "with a BED and --bw_paths instead")
+        genome = Genome.from_fasta(opts.ref_genome)
 
-    config = load_config(opts.model_config_path)
-    n_class = config["n_class"]
-    if config.get("n_cont", 0):
-        raise ValueError(
-            "this checkpoint was trained with bigWig track features "
-            f"(n_cont={config['n_cont']}); genome-wide prediction does "
-            "not generate continuous features -- use `predict` with a "
-            "BED and --bw_paths instead")
-    genome = Genome.from_fasta(opts.ref_genome)
-    _phase("load genome")
-
-    model = build_model_from_config(config, 0, model_type)
-    load_checkpoint(opts.model_path, model)
-    model.to(device).eval()
+    with spans.span("genome.load_checkpoint"):
+        model = build_model_from_config(config, 0, model_type)
+        load_checkpoint(opts.model_path, model)
+        model.to(device).eval()
     local_radius = config["local_radius"]
     local_order = config["local_order"]
     distal_radius = config["distal_radius"]
-    _phase("load checkpoint")
     calibr = (load_calibrator(opts.calibrator_path)
               if opts.calibrator_path else None)
 
@@ -222,13 +279,14 @@ def run_genome_predict(opts: GenomePredictOptions, model_type: str = "snv",
     margin = max(distal_radius, local_radius + local_order) + 2
     n_workers = (auto_n_workers() if opts.n_workers is None
                  else opts.n_workers)
-    farm = PostprocessFarm(
-        opts.pred_file,
-        ["chrom", "start", "end", "strand", "mut_type"]
-        + [f"prob{i}" for i in range(n_class)],
-        calibrator=calibr,
-        poisson=(opts.poisson_calib or model_type == "indel"),
-        n_workers=n_workers)
+    with spans.span("farm.start", workers=n_workers):
+        farm = PostprocessFarm(
+            opts.pred_file,
+            ["chrom", "start", "end", "strand", "mut_type"]
+            + [f"prob{i}" for i in range(n_class)],
+            calibrator=calibr,
+            poisson=(opts.poisson_calib or model_type == "indel"),
+            n_workers=n_workers)
     flush_batches = (opts.flush_batches if opts.flush_batches
                      else max(4, 65536 // batch_size))
     side = ({d: torch.cuda.Stream(d) for d in set(devices)}
@@ -246,34 +304,39 @@ def run_genome_predict(opts: GenomePredictOptions, model_type: str = "snv",
             item = drain_q.get()
             if item is None:
                 return
-            hosts, copied, valids, meta_rows = item
+            window, hosts, copied, valids, meta_rows = item
             try:
-                for event in copied:
-                    event.synchronize()
-                if n_rep == 1:
-                    flat = hosts[0].numpy()
-                else:    # replica i holds rows [i*per, (i+1)*per) of each
-                    flat = np.stack([h.numpy().reshape(-1, per, n_class)
-                                     for h in hosts], axis=1).reshape(
-                                         -1, n_class)
-                logits_np = [flat[i * batch_size:i * batch_size + n]
-                             for i, n in enumerate(valids)]
-                # one farm chunk per run of same-chromosome batches
-                i, k = 0, len(valids)
-                while i < k:
-                    chrom = meta_rows[i][0]
-                    j = i
-                    while j < k and meta_rows[j][0] == chrom:
-                        j += 1
-                    pos = np.concatenate([m[1] for m in meta_rows[i:j]])
-                    neg = np.concatenate([m[2] for m in meta_rows[i:j]])
-                    farm.submit(chrom, pos, neg,
-                                np.concatenate(logits_np[i:j]))
-                    submitted += len(pos)
-                    i = j
+                with spans.span("genome.card_wait", key=window):
+                    for event in copied:
+                        event.synchronize()
+                with spans.span("genome.farm_submit", key=window):
+                    submitted += submit_window(hosts, valids, meta_rows)
             except BaseException as e:
                 drain_err.append(e)
                 return
+
+    def submit_window(hosts, valids, meta_rows) -> int:
+        """A flush window's rows to the farm: one chunk per run of
+        same-chromosome batches.  Returns the rows submitted."""
+        if n_rep == 1:
+            flat = hosts[0].numpy()
+        else:    # replica i holds rows [i*per, (i+1)*per) of each batch
+            flat = np.stack([h.numpy().reshape(-1, per, n_class)
+                             for h in hosts], axis=1).reshape(-1, n_class)
+        logits_np = [flat[i * batch_size:i * batch_size + n]
+                     for i, n in enumerate(valids)]
+        i, k, rows = 0, len(valids), 0
+        while i < k:
+            chrom = meta_rows[i][0]
+            j = i
+            while j < k and meta_rows[j][0] == chrom:
+                j += 1
+            pos = np.concatenate([m[1] for m in meta_rows[i:j]])
+            neg = np.concatenate([m[2] for m in meta_rows[i:j]])
+            farm.submit(chrom, pos, neg, np.concatenate(logits_np[i:j]))
+            rows += len(pos)
+            i = j
+        return rows
 
     def to_drain(item):
         """Hand ``item`` to the drain thread, raising its error if it has
@@ -290,6 +353,7 @@ def run_genome_predict(opts: GenomePredictOptions, model_type: str = "snv",
     pending: List[List[torch.Tensor]] = [[] for _ in devices]
     pending_valid: List[int] = []
     meta: List = []
+    windows = 0
 
     def drain_copy(flat, d):
         """``flat``'s copy to pinned host memory on ``d``'s side stream,
@@ -307,41 +371,54 @@ def run_genome_predict(opts: GenomePredictOptions, model_type: str = "snv",
         return host, copied
 
     def flush():
+        nonlocal windows
         if not pending_valid:
             return
-        hosts, copied = [], []
-        for i, d in enumerate(devices):
-            flat = torch.cat(pending[i])
-            if side is not None:
-                host, event = drain_copy(flat, d)
-                copied.append(event)
-            else:
-                host = flat
-            hosts.append(host)
-            pending[i].clear()
-        to_drain((hosts, copied, list(pending_valid), list(meta)))
+        with spans.span("genome.flush", key=windows):
+            hosts, copied = [], []
+            for i, d in enumerate(devices):
+                flat = torch.cat(pending[i])
+                if side is not None:
+                    host, event = drain_copy(flat, d)
+                    copied.append(event)
+                else:
+                    host = flat
+                hosts.append(host)
+                pending[i].clear()
+            with spans.span("genome.drain_put_wait", key=windows):
+                to_drain((windows, hosts, copied, list(pending_valid),
+                          list(meta)))
         pending_valid.clear()
         meta.clear()
+        windows += 1
 
-    drain_thread = threading.Thread(target=drain_worker, daemon=True)
+    drain_thread = threading.Thread(target=drain_worker, daemon=True,
+                                    name="mural-genome-drain")
     drain_thread.start()
     batch_count = 0
     chroms = opts.chroms or genome.names()
+    batches = _host_batches(genome, chroms, opts.focal_base, margin,
+                            opts.chunk_size, batch_size, local_radius,
+                            distal_radius, model_type)
     try:
         with torch.inference_mode():
-            chunk = None
-            for padded, packed, n_valid, mrow in _host_batches(
-                    genome, chroms, opts.focal_base, margin,
-                    opts.chunk_size, batch_size, local_radius,
-                    distal_radius, model_type):
-                if padded is not None:
-                    chunks = {d: to_device(padded, d) for d in set(devices)}
-                step_t0 = time.time()
-                for i, d in enumerate(devices):
-                    pending[i].append(genome_step(i, chunks[d], to_device(
-                        packed[i * per:(i + 1) * per], d)))
-                if "first step (compile)" not in phases:
-                    phases["first step (compile)"] = time.time() - step_t0
+            while True:
+                try:
+                    # a span left by the iterator's end is not kept
+                    with spans.span("genome.feed", key=batch_count):
+                        padded, packed, n_valid, mrow = next(batches)
+                        if padded is not None:
+                            chunks = {d: to_device(padded, d)
+                                      for d in set(devices)}
+                        starts = [to_device(packed[i * per:(i + 1) * per],
+                                            d)
+                                  for i, d in enumerate(devices)]
+                except StopIteration:
+                    break
+                with spans.span("genome.issue", key=batch_count):
+                    for i, d in enumerate(devices):
+                        pending[i].append(genome_step(i, chunks[d],
+                                                      starts[i]))
                 pending_valid.append(n_valid)
                 meta.append(mrow)
                 batch_count += 1
@@ -360,19 +437,5 @@ def run_genome_predict(opts: GenomePredictOptions, model_type: str = "snv",
     except BaseException:
         farm.abort()
         raise
-    _phase("device loop + flushes")
-    total = farm.close()
-    _phase("writer close")
-    rate = total / max(time.time() - t0, 1e-9)
-    if opts.time_view:
-        printer("predict_genome phase timing:")
-        first = phases.get("first step (compile)", 0.0)
-        phases["device loop + flushes"] = (
-            phases.get("device loop + flushes", 0.0) - first)
-        for name, dt in phases.items():
-            printer(f"  {name:<28s} {dt:8.2f}s")
-    printer(f"genome-wide predict: {total:,} sites in "
-            f"{time.time() - t0:.1f}s = {rate:,.0f} sites/s "
-            f"({n_workers} postprocess workers"
-            f"{' [auto]' if opts.n_workers is None else ''})")
-    return total
+    with spans.span("farm.close"):
+        return farm.close(), n_workers

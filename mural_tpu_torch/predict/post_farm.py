@@ -15,6 +15,13 @@ gzip member (concatenated members are a valid gzip stream):
 Workers never touch CUDA.  A worker that unpickles a calibrator of this
 package loads torch (``calibrate/multinomial.py``); it runs on one
 thread, so that several workers do not oversubscribe the host.
+
+Spans and counters (:mod:`mural_tpu_torch.utils.spans`):
+``farm.queue_wait`` (a submit blocked on the full task queue) or, inline,
+``farm.inline`` (the postprocess itself); as each chunk is written, the
+counters ``farm.rows_written`` and ``farm.worker_busy_s`` (the seconds a
+worker spent on the chunk, which it times itself), each keyed by the
+chunk's sequence number and given the farm's worker count.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import pickle
 import queue
 import threading
+import time
 import zlib
 from typing import Optional
 
@@ -29,6 +37,7 @@ import numpy as np
 
 from mural_tpu_torch import native
 from mural_tpu_torch.calibrate.poisson import poisson_calibrate
+from mural_tpu_torch.utils import spans
 
 # seconds between the liveness checks of a blocked submit or close
 POLL_S = 5.0
@@ -84,12 +93,13 @@ def _worker(task_q, result_q, calib_blob: bytes, poisson: bool,
         if item is None:
             return
         seq, chrom, pos, neg, logits = item
+        t0 = time.perf_counter()
         try:
             n, blob = postprocess_chunk(chrom, pos, neg, logits,
                                         calibrator, poisson, compresslevel)
-            result_q.put((seq, n, blob, None))
+            result_q.put((seq, n, blob, None, time.perf_counter() - t0))
         except Exception as exc:  # surfaced in the main process
-            result_q.put((seq, 0, b"", repr(exc)))
+            result_q.put((seq, 0, b"", repr(exc), 0.0))
 
 
 class PostprocessFarm:
@@ -134,7 +144,8 @@ class PostprocessFarm:
             self._buffer: dict = {}
             self._next_write = 0
             self._lock = threading.Condition()
-            self._writer = threading.Thread(target=self._drain, daemon=True)
+            self._writer = threading.Thread(target=self._drain, daemon=True,
+                                            name="mural-farm-writer")
             self._writer.start()
 
     def _drain(self) -> None:
@@ -143,18 +154,26 @@ class PostprocessFarm:
             item = self._result_q.get()
             if item is None:
                 return
-            seq, n, blob, err = item
+            seq, n, blob, err, busy = item
             with self._lock:
                 if err and self._error is None:
                     self._error = err
-                self._buffer[seq] = (n, blob)
+                self._buffer[seq] = (n, blob, busy)
                 while self._next_write in self._buffer:
-                    n2, b2 = self._buffer.pop(self._next_write)
-                    self._fh.write(b2)
-                    self.total += n2
+                    n2, b2, busy2 = self._buffer.pop(self._next_write)
+                    self._write(self._next_write, n2, b2)
+                    spans.count("farm.worker_busy_s", busy2,
+                                key=self._next_write,
+                                workers=self.n_workers)
                     self._next_write += 1
                 self._done += 1
                 self._lock.notify_all()
+
+    def _write(self, seq: int, n: int, blob: bytes) -> None:
+        self._fh.write(blob)
+        self.total += n
+        spans.count("farm.rows_written", n, key=seq,
+                    workers=self.n_workers)
 
     def _workers_alive(self) -> bool:
         return all(p.is_alive() for p in self._procs)
@@ -164,25 +183,27 @@ class PostprocessFarm:
         if self._error:
             raise RuntimeError(f"postprocess worker failed: {self._error}")
         if self.n_workers == 0:
-            n, blob = postprocess_chunk(chrom, pos, neg, logits,
-                                        self.calibrator, self.poisson,
-                                        self.compresslevel)
-            self._fh.write(blob)
-            self.total += n
+            with spans.span("farm.inline", key=self._seq):
+                n, blob = postprocess_chunk(chrom, pos, neg, logits,
+                                            self.calibrator, self.poisson,
+                                            self.compresslevel)
+            self._write(self._seq, n, blob)
         else:
             item = (self._seq, chrom, np.ascontiguousarray(pos),
                     np.ascontiguousarray(neg), np.asarray(logits))
-            while True:
-                try:
-                    self._task_q.put(item, timeout=POLL_S)
-                    break
-                except queue.Full:
-                    # a worker killed by the OS never drains the bounded
-                    # queue: fail instead of blocking the run forever
-                    if not self._workers_alive():
-                        raise RuntimeError(
-                            "postprocess worker process died; see any "
-                            "earlier error, or check host memory")
+            with spans.span("farm.queue_wait", key=self._seq):
+                while True:
+                    try:
+                        self._task_q.put(item, timeout=POLL_S)
+                        break
+                    except queue.Full:
+                        # a worker killed by the OS never drains the
+                        # bounded queue: fail instead of blocking the run
+                        # forever
+                        if not self._workers_alive():
+                            raise RuntimeError(
+                                "postprocess worker process died; see any "
+                                "earlier error, or check host memory")
         self._seq += 1
 
     def close(self) -> int:

@@ -31,6 +31,9 @@ issues one replay where it issued every kernel of K steps.
   (``train/ensemble.py ensemble_step_update``), whose scalars hold a
   row per member.  Under ``--bf16`` each step enters its bfloat16
   autocast without the cast cache, so a capture records every cast.
+- Each group but the one that warms up and captures is a span
+  (:mod:`mural_tpu_torch.utils.spans`): ``train.group`` with ``steps``
+  and ``mode`` (``eager`` or ``replay``).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch
 
 from mural_tpu_torch.ops import fused_train_stem as fts
 from mural_tpu_torch.train.steps import TrainState, model_input, step_update
+from mural_tpu_torch.utils import spans
 
 
 def steps_per_dispatch(value: Optional[int], model_type: str,
@@ -115,14 +119,18 @@ class StepGroups:
         losses on the device and advances ``state.step``."""
         k = scalars.shape[0]
         if self.device.type != "cuda" or k != self.k or k == 1:
-            losses = run_steps(self.state, scalars, self.batch, inputs,
-                               self.step)
+            with spans.span("train.group", key=self.state.step, steps=k,
+                            mode="eager"):
+                losses = run_steps(self.state, scalars, self.batch, inputs,
+                                   self.step)
         else:
             with torch.cuda.device(self.device):
                 if self.graph is None:
                     losses = self._warm_up_and_capture(scalars, inputs)
                 else:
-                    losses = self._replay(scalars, inputs)
+                    with spans.span("train.group", key=self.state.step,
+                                    steps=k, mode="replay"):
+                        losses = self._replay(scalars, inputs)
         self.state.step += k
         return losses
 

@@ -192,8 +192,13 @@ def test_genome_predict_matches_jax(inputs, case):
     # every chromosome, in FASTA order
     assert list(dict.fromkeys(r[0] for r in got[1])) == ["chr2", "1"]
     assert t_lines[0] == "predict_genome phase timing:"
-    assert [line.split()[0] for line in t_lines[1:6]] == [
-        "load", "load", "first", "device", "writer"]
+    # the span recorder's totals, a row a stage (inline farm)
+    assert [line[2:34].strip() for line in t_lines[1:-1]] == [
+        "load genome", "load checkpoint", "farm start", "feed", "issue",
+        "flush", "flush: drain-queue wait", "card wait (drain thread)",
+        "farm submit (drain thread)", "farm submit: inline postprocess",
+        "farm close", "rows written"]
+    assert t_lines[-2].split()[2] == f"{expect:,}"
     assert t_lines[-1].startswith(f"genome-wide predict: {expect:,} sites")
 
 

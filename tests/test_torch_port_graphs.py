@@ -7,7 +7,8 @@ SGD under StepLR (a decay and a restart inside a group), StepLR2 (a
 restart inside a group, and at the epoch) and ROP (a new LR at the
 epoch), two epochs of two groups and two leftover single steps each;
 ``TrainState.step``; the default K; the replay count of the K2/K3
-launches a capture records; ``--profile_dir`` writing a trace."""
+launches a capture records; ``--profile_dir`` writing a trace that
+holds the program's spans."""
 import json
 import os
 
@@ -179,3 +180,5 @@ def test_profile_dir_writes_a_trace(tmp_path):
     assert files == ["train_epoch0.pt.trace.json"]
     events = json.loads((prof / files[0]).read_text())["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
+    # the program's spans, on the profiler's clock
+    assert any(e.get("name") == "mural::train.group" for e in events)
