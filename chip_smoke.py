@@ -8,7 +8,8 @@ Phases (any failure raises and the script exits non-zero):
 
 1. setup: print the card's name and power limit, build the CUDA kernels
    (``mural_tpu_torch/ops/csrc/*.cu``: K1 ``code_conv1d``, K2/K3
-   ``code_conv_pool``) with one nvcc each, all started together, write a
+   ``code_conv_pool``, K4 ``window_one_hot``) with one nvcc each, all
+   started together, write a
    synthetic FASTA and two SNV and two INDEL BEDs from ``--seed``, and
    write two checkpoint triples with the port itself: SNVNet2 and the
    ``--use_reverse`` INDEL U-Net at the CLI default widths with seeded
@@ -67,7 +68,7 @@ Phases (any failure raises and the script exits non-zero):
    ``calc_scaling_factor --genomewide_mu 1e-8 --do_scaling`` and ``scale``
    with the same factor: the two scaled files equal line for line,
    probabilities summing to 1 within ``%.4g``; the seconds of each;
-9. the INDEL path, which runs none of the port's kernels: the U-Net at
+9. the INDEL path, which runs K4 and none of K1-K3: the U-Net at
    the ``mural_indel train`` defaults (8000-bp windows, down_list
    1,4,5,5,5,2, 8 channels, k 7) on the card against the CPU for both
    ``use_reverse`` variants (B=4, <= 1e-4), its forward's device ms at
@@ -80,7 +81,7 @@ Phases (any failure raises and the script exits non-zero):
    --pred_batch_size 1024`` of ``INDEL_SITES`` sites (``prob0..prob7``
    summing to 1, sites/s)
    and ``evaluate --kmer_length 4`` on its TSV; K1, K2 and K3 launched
-   0 times in the phase;
+   0 times in the phase, K4 in each of its three parts (counts kept);
 10. the rest of the SNV family and the track features, at the CLI
     default widths: two seeded bedGraph tracks (integer coverage in
     100-bp steps with radius 50, gzipped fractional scores in 1,000-bp
@@ -136,13 +137,15 @@ Phases (any failure raises and the script exits non-zero):
     schema, ``mut_type`` 0, each row's strand matching its base, sums
     within 5e-3, the inline and worker outputs byte-equal after
     decompression, fused against unfused within ``%.4g``, K1 twice per
-    batch fused and 0 times unfused; sites/s and the phase table of
+    batch fused and 0 times unfused, K4 once per batch unfused and 0
+    times fused; sites/s and the phase table of
     each); ``predict --fused_inference`` of a BED of 20,000 of its sites
     (both chromosome ends and random) equal to their genome-wide rows
     within ``%.4g`` (the card's gather against the host's); ``mural_indel
     predict_genome --pred_batch_size 1024`` with phase 1's INDEL triple
     on a seeded 200,000-base chromosome of its own (200,000 rows of
-    ``prob0..7`` summing to 1, K1-K3 0 times, sites/s) and ``predict`` of
+    ``prob0..7`` summing to 1, K1-K3 0 times, K4 once per batch, sites/s)
+    and ``predict`` of
     a BED of 5,000 of its sites within ``%.4g``;
 13. the device-fed train loop: SNVNet2 at the CLI default widths (B=128,
     dropout 0, Adam, ``--lr_scheduler StepLR2``) on phase 10's 20,000
@@ -231,18 +234,29 @@ Phases (any failure raises and the script exits non-zero):
     gradients within 1e-5 of the largest entry); the four calibrators of
     ``calibrate/extra.py`` fitted on the host to 50,000 of phase 6's
     probabilities (finite, summing to 1, their pickles loading back);
+18. (run after phase 3) K4, the windows' strand-resolved one-hot,
+    against its plain version bit for bit: B=4096 windows of W=8000 (the
+    INDEL map's batch), 128 x 8000 (INDEL training) and 4096 x 2001 (the
+    unfused SNV map) from a 4-Mb chunk of every code 0-15, float32 and
+    bf16, mixed strands and none given, and ``one_hot_from_codes`` on
+    (128, 8000) codes and a strided view of them; at each shape the
+    device ms of the kernel in both dtypes beside its byte bound, of the
+    plain version, and of ``F.embedding(codes.long(), table)`` on the
+    windows (a yardstick the port never calls); the device ops of one
+    INDEL map batch's encode (B=4096);
 14. last, after phase 17: a JSON line of the kernels (with
     ``launches_phase11``, ``launches_phase12``, ``launches_phase13``,
     ``launches_phase16``, ``launches_phase17``, the bf16 mode's records
-    with ``launches_phase15``) and a timing line.
+    with ``launches_phase15``, K4's with ``launches_phase9`` and
+    ``launches_phase12``) and a timing line.
 
 The last line of standard output is the device record
 ``{"ok": true, "device": {...}}``.  ``--only_kernels`` runs the setup
-(without the synthetic genome), phases 2-3 and phase 15's kernel checks,
-prints the kernels' JSON line and exits 0 without the device record: a
-quick check of the kernels while they change.  Without a CUDA device, or without the
-rest of the repository beside it, the script exits non-zero and prints
-no result.  Scratch files go to ``build/chip_smoke/`` beside this script
+(without the synthetic genome), phases 2-3, phase 15's kernel checks and
+phase 18, prints the kernels' JSON line and exits 0 without the device
+record: a quick check of the kernels while they change.  Without a CUDA
+device, or without the rest of the repository beside it, the script
+exits non-zero and prints no result.  Scratch files go to ``build/chip_smoke/`` beside this script
 and are removed at the end.
 """
 
@@ -366,7 +380,8 @@ def build_kernels():
     from mural_tpu_torch import native
     from mural_tpu_torch.ops import fused_code_conv as fcc
     from mural_tpu_torch.ops import fused_train_stem as fts
-    libs = (fcc.LIBRARY, fts.LIBRARY)
+    from mural_tpu_torch.ops import window_one_hot as wo
+    libs = (fcc.LIBRARY, fts.LIBRARY, wo.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs) + 1) as ex:
         builds = [ex.submit(lib.load) for lib in libs]
@@ -598,6 +613,99 @@ def time_k1(full, table, bias, k, C):
            "bound_ms": bound_ms, "bound_by": bound_by}
     log(f"K1 one predict batch at B={B}: " + json.dumps(out))
     return out
+
+
+# (B, W) of K4's calls on the main path: the INDEL map's batch, INDEL
+# training's, and the unfused SNV map's
+K4_SHAPES = ((4096, 8000), (128, 8000), (4096, 2001))
+
+
+def k4_bound(B, W, elem):
+    """K4 on B windows of W: code bytes, starts and strand flags in, the
+    (B, W, 4) one-hot (``elem`` bytes an entry) out; no arithmetic."""
+    return bound(B * W * (1 + 4 * elem) + 9 * B + 64 * elem, 0)
+
+
+def k4_inputs(gen, B, W, dev):
+    """A 4-Mb code chunk with the windows' margins (every code 0-15), B
+    window starts in it (its two ends first) and mixed strand flags."""
+    import torch
+    src = torch.randint(0, 16, ((1 << 22) + 2 * W,), generator=gen,
+                        dtype=torch.uint8)
+    starts = torch.randint(0, len(src) - W + 1, (B,), generator=gen)
+    starts[:2] = torch.tensor([0, len(src) - W])
+    neg = torch.rand(B, generator=gen) < 0.5
+    return src.to(dev), starts.to(dev), neg.to(dev)
+
+
+def phase_k4(dev, gen):
+    """K4 against its plain version, bit for bit, at the main path's
+    shapes in float32 and bf16, with mixed strands and with none given,
+    and ``one_hot_from_codes`` on (128, 8000) codes and a strided view;
+    float32 timings of kernel, plain version and the library yardstick
+    beside the bound, and the bf16 kernel's beside its own; the device
+    ops of one INDEL map batch's encode."""
+    import torch
+    import torch.nn.functional as F
+    from mural_tpu_torch.device import constant
+    from mural_tpu_torch.ops import window_one_hot as wo
+    from mural_tpu_torch.ops.device_gather import make_batch_encoder
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+    def same(a, b):
+        torch.cuda.synchronize()
+        return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+            a.view(bits[a.dtype]), b.view(bits[b.dtype])))
+
+    checks, out = {}, {}
+    for B, W in K4_SHAPES:
+        src, starts, neg = k4_inputs(gen, B, W, dev)
+        for dtype in bits:
+            for n, strand in ((neg, "mixed strands"), (None, "no strands")):
+                checks[f"{B}x{W} {dtype} {strand}"] = same(
+                    wo.window_one_hot(src, starts, W, n, dtype),
+                    wo.window_one_hot_plain(src, starts, W, n, dtype))
+        codes = src.unfold(0, W, 1)[starts]           # the windows (B, W)
+        table = constant(wo.ONE_HOT16, dev, torch.float32)
+        rec = {}
+        for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "bf16_")):
+            rec[f"{tag}ms"] = device_ms(
+                lambda: wo.window_one_hot(src, starts, W, neg, dtype),
+                what=f"k4 {B}x{W} {dtype}")
+            rec[f"{tag}bound_ms"], rec[f"{tag}bound_by"] = k4_bound(
+                B, W, torch.finfo(dtype).bits // 8)
+            rec[f"{tag}bound_share"] = rec[f"{tag}bound_ms"] / rec[
+                f"{tag}ms"]
+        rec.update(
+            plain_ms=device_ms(
+                lambda: wo.window_one_hot_plain(src, starts, W, neg),
+                what=f"k4_plain {B}x{W}"),
+            library_ms=device_ms(lambda: F.embedding(codes.long(), table),
+                                 what=f"k4_library {B}x{W}"),
+            call_ms=cuda_ms(lambda: wo.window_one_hot(src, starts, W, neg)))
+        log(f"K4 B={B} W={W}: " + json.dumps(rec))
+        out[f"{B}x{W}"] = rec
+        del src, starts, neg, codes
+    codes = k4_inputs(gen, 128, 8000, dev)[0][:128 * 8000].view(128, 8000)
+    for form, c in (("(128, 8000)", codes),
+                    ("strided view", codes[:, 7:2008])):
+        for dtype in bits:
+            checks[f"one_hot_from_codes {form} {dtype}"] = same(
+                wo.one_hot_from_codes(c, dtype),
+                wo.one_hot_from_codes_plain(c, dtype))
+    check_all("K4 against its plain version, bit for bit", checks)
+    # one INDEL map batch's encode (``mural_indel predict_genome``'s
+    # widths): K4 builds the one-hot, no table gather runs
+    encode, lw, dw = make_batch_encoder(
+        INDEL_CONFIG["local_radius"], INDEL_CONFIG["local_order"],
+        INDEL_CONFIG["distal_radius"], "indel")
+    src, dstart, neg = k4_inputs(gen, 4096, dw, dev)
+    src = src % 15              # a chunk holds genome codes, no sentinel
+    encode_trace = forward_trace(
+        lambda: encode(src, dstart + (dw - lw) // 2, dstart, neg),
+        f"INDEL map encode (B=4096, W={dw})")
+    return {"max_abs_err": 0.0, "cases": len(checks), "timings": out,
+            "indel_map_encode_trace": encode_trace}
 
 
 def check_stem_case(name, codes, table, bias, pk, pp, gen, bf16=False):
@@ -1398,10 +1506,12 @@ def kernel_launches():
 
 
 def counted(fn, *args):
-    """``fn(*args)`` with K1-K3 counted from 0; returns (result, counts)."""
+    """``fn(*args)`` with K1-K4 counted from 0; returns (result, K1-K3
+    counts); K4's is ``window_one_hot.LAUNCHES``."""
     from mural_tpu_torch.ops import fused_code_conv as fcc
     from mural_tpu_torch.ops import fused_train_stem as fts
-    fcc.LAUNCHES = fts.FWD_LAUNCHES = fts.BWD_LAUNCHES = 0
+    from mural_tpu_torch.ops import window_one_hot as wo
+    fcc.LAUNCHES = fts.FWD_LAUNCHES = fts.BWD_LAUNCHES = wo.LAUNCHES = 0
     out = fn(*args)
     return out, kernel_launches()
 
@@ -1615,8 +1725,9 @@ def phase_indel_cli(work, fasta, bed, train_bed, cuda_id):
 def phase_indel(work, fasta, model_path, beds, dev, seed):
     """The INDEL path: forward, train step and CLI, with K1-K3 counted
     from 0 around each part; none of them may launch."""
+    from mural_tpu_torch.ops import window_one_hot as wo
     bed, train_bed = beds
-    out, launches = {}, []
+    out, launches, k4 = {}, [], {}
     for name, fn, args in (
             ("forward", phase_indel_forward, (model_path, dev, seed)),
             ("train_step", phase_indel_step, (dev, seed, fasta, train_bed)),
@@ -1625,11 +1736,15 @@ def phase_indel(work, fasta, model_path, beds, dev, seed):
         out[name], counts = counted(fn, *args)
         # the CLI part resets the counters itself and returns its own
         launches.append(out[name].pop("launches", counts))
+        k4[name] = wo.LAUNCHES
     total = [sum(c) for c in zip(*launches)]
-    log(f"INDEL phase, K1/K2/K3 launches: {total}")
-    check_all("INDEL phase", {"K1, K2 and K3 launched 0 times":
-                              total == [0, 0, 0]})
+    log(f"INDEL phase, K1/K2/K3 launches: {total}; K4 launches by part: "
+        f"{k4}")
+    check_all("INDEL phase", {
+        "K1, K2 and K3 launched 0 times": total == [0, 0, 0],
+        "K4 launched in every part": all(k4.values())})
     out["k1_k2_k3_launches"] = total
+    out["k4_launches"] = k4
     return out
 
 
@@ -2436,20 +2551,23 @@ _GW_PHASE = re.compile(r"^  (\S.*?)\s+([\d.]+)s$")
 
 
 def cli_genome(cli, argv, out):
-    """One ``predict_genome`` through the CLI with K1-K3 counted from 0
+    """One ``predict_genome`` through the CLI with K1-K4 counted from 0
     just before it; returns its run record with the printed phase table,
     the printed rate and the TSV."""
     import torch
+    from mural_tpu_torch.ops import window_one_hot as wo
     argv = ["predict_genome", *argv, "--pred_file", out, "--pred_time_view"]
     torch.cuda.synchronize()
     (rc, seconds, lines), launches = counted(run_cli, cli, argv)
     torch.cuda.synchronize()
+    k4_launches = wo.LAUNCHES
     rate = next((m for m in map(_GW_RATE.search, lines) if m), None)
     start = next((i for i, line in enumerate(lines)
                   if line == "predict_genome phase timing:"), len(lines))
     phases = {m[1]: float(m[2]) for m in map(_GW_PHASE.match,
                                               lines[start + 1:]) if m}
     return {"rc": rc, "seconds": seconds, "launches": launches,
+            "k4_launches": k4_launches,
             "phases": phases, "tsv": read_genome_tsv(out),
             "printed_sites": rate and int(rate[1].replace(",", "")),
             "printed_sites_per_s": rate and int(rate[3].replace(",", "")),
@@ -2520,6 +2638,10 @@ def phase_genome_snv(work, fasta, model_path, cuda_id, rng):
             for k in ("fused_inline", "fused_workers")),
         "no K1 launch unfused": runs["unfused_auto"]["launches"] == (0, 0,
                                                                      0),
+        f"K4 launched once a batch unfused ({n_batches}), never fused":
+            runs["unfused_auto"]["k4_launches"] == n_batches and all(
+                runs[k]["k4_launches"] == 0
+                for k in ("fused_inline", "fused_workers")),
     })
 
     # the card's gather against the host's: a BED of sites at both ends
@@ -2599,6 +2721,8 @@ def phase_genome_indel(work, indel_path, cuda_id, rng):
             and np.all(np.abs(probs.sum(1) - 1)
                        <= 5e-4 * np.abs(probs).sum(1) + 1e-6)),
         "K1, K2 and K3 launched 0 times": run["launches"] == (0, 0, 0),
+        f"K4 launched once a batch ({-(-INDEL_GENOME // INDEL_PRED_BATCH)})":
+            run["k4_launches"] == -(-INDEL_GENOME // INDEL_PRED_BATCH),
         f"predict of a BED of {INDEL_BED_SITES} of its sites agrees "
         "within %.4g": [int(k[1]) for k in keys] == pick.tolist()
         and within_printed(bed_probs, probs[pick]),
@@ -2619,7 +2743,8 @@ def phase_genome_wide(work, fasta, model_path, indel_path, dev, seed):
                 "sites_per_s": run["sites_per_s"],
                 "printed_sites_per_s": run["printed_sites_per_s"],
                 "workers": run["workers"], "phases": run["phases"],
-                "k1_launches": run["launches"][0]}
+                "k1_launches": run["launches"][0],
+                "k4_launches": run["k4_launches"]}
 
     out = {name: record(run, n_sites) for name, run in snv.items()}
     out["indel"] = dict(record(indel, INDEL_GENOME),
@@ -3956,7 +4081,8 @@ def phase_cache(work, fasta, bed, family_bed, model_path, indel_path,
 
 def kernel_records(k1, k23, k1_launches, train_on, family=None,
                    later=None, genome=None, fed=None, k23_bf16=None,
-                   mixed=None, parallel=None, cached=None):
+                   mixed=None, parallel=None, cached=None, k4=None,
+                   indel=None):
     """The kernels' JSON records from phases 2-3; ``launches`` come from
     the main path's runs (None when it did not run): K1 from phase 6's
     fused predict, K2/K3 from phase 7's fused train (resident data, 8
@@ -3975,7 +4101,10 @@ def kernel_records(k1, k23, k1_launches, train_on, family=None,
     predicts and genome-wide runs, K2/K3 on each data-parallel rank and
     the overlapped-tail CLI run.  ``launches_phase17`` (``cached``): K1 on
     each ``predict --with_h5`` run, K2/K3 on the cold and warm ``train
-    --with_h5``."""
+    --with_h5``.  K4's record (``k4``, phase 18) takes its ``launches``
+    from phase 12's INDEL ``predict_genome`` (``genome``) and
+    ``launches_phase9`` from phase 9's parts (``indel``: the forward, the
+    train steps, and the CLI's train and predict)."""
     p11 = None
     if later is not None:
         tr, ind = later["transfer"], later["indel_transfer"]["launches"]
@@ -4080,6 +4209,24 @@ def kernel_records(k1, k23, k1_launches, train_on, family=None,
                 "launches_phase15": steps and {
                     run: rec[f"{kk}_bf16"] for run, rec in steps.items()},
             })
+    if k4 is not None:
+        main = k4["timings"][f"{K4_SHAPES[0][0]}x{K4_SHAPES[0][1]}"]
+        kernels.append({
+            "name": "window_one_hot", "route": "cuda",
+            "source": "mural_tpu_torch/ops/csrc/window_one_hot.cu",
+            "replaces": None,
+            "launches": genome and genome["indel"]["k4_launches"],
+            "max_abs_err": k4["max_abs_err"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+            "call_ms": main["call_ms"],
+            "per": "one INDEL map batch: B=4096 windows of W=8000, float32",
+            "timings": k4["timings"],
+            "launches_phase9": indel and indel["k4_launches"],
+            "launches_phase12": genome and {
+                name: run["k4_launches"] for name, run in genome.items()
+                if name != "bed_check"},
+        })
     return kernels
 
 
@@ -4089,8 +4236,9 @@ def main(argv=None) -> int:
     ap.add_argument("--n_sites", type=int, default=200_000)
     ap.add_argument("--n_train", type=int, default=60_000)
     ap.add_argument("--only_kernels", action="store_true",
-                    help="setup, phases 2-3 and the bf16 mode's kernel "
-                         "checks only, then the kernels' JSON line; no "
+                    help="setup, phases 2-3, the bf16 mode's kernel "
+                         "checks and K4's phase 18 only, then the kernels' "
+                         "JSON line; no "
                          "device record (for iterating on the kernels)")
     args = ap.parse_args(argv)
 
@@ -4148,10 +4296,12 @@ def main(argv=None) -> int:
     k23 = timed("k2_k3", phase_k2_k3, model, dev, gen)
     # 15 (kernels). K2/K3's bf16 mode against its plain version
     k23_bf16 = timed("k2_k3_bf16", phase_k2_k3, model, dev, gen, True)
+    # 18. K4 against its plain version
+    k4 = timed("k4", phase_k4, dev, gen)
     if args.only_kernels:
         shutil.rmtree(work, ignore_errors=True)
         log(json.dumps({"kernels": kernel_records(
-            k1, k23, None, None, k23_bf16=k23_bf16)}))
+            k1, k23, None, None, k23_bf16=k23_bf16, k4=k4)}))
         log(json.dumps({"card": card, "build_s": t_build,
                         "phase_s": phase_s,
                         "timed_with_cuda_events": TIMED_WITH_EVENTS,
@@ -4208,7 +4358,7 @@ def main(argv=None) -> int:
     # 14. results
     log(json.dumps({"kernels": kernel_records(
         k1, k23, fused["launches"], train_on, family, later, genome, fed,
-        k23_bf16, mixed, parallel, cached)}))
+        k23_bf16, mixed, parallel, cached, k4, indel)}))
     log(json.dumps({
         "card": card, "build_s": t_build,
         "model_max_abs_err": model_err, **fwd_ms,

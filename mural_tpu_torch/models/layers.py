@@ -16,30 +16,19 @@ from __future__ import annotations
 
 from typing import Sequence
 
-import numpy as np
 import torch
 from torch import nn
 
-from mural_tpu_torch.device import constant
-from mural_tpu_torch.genome.encode import ONE_HOT_TABLE
 from mural_tpu_torch.ops.fused_code_conv import fold_bn_conv_table
 from mural_tpu_torch.ops.fused_train_stem import (code_conv_pool,
                                                   hist_batch_stats)
+# the models' one-hot input, kernel K4 on CUDA tensors (re-exported)
+from mural_tpu_torch.ops.window_one_hot import (  # noqa: F401
+    one_hot_from_codes)
 
 # (kernel, stride, padding) of the three pools of each tower
 MID_POOLS = ((3, 3, 1), (3, 3, 1), (3, 3, 1))
 LARGE_POOLS = ((15, 15, 7), (7, 7, 3), (3, 3, 1))
-
-# 16 rows: the 15 codes plus a zero row for the sentinel code 15
-_ONE_HOT16 = np.concatenate([ONE_HOT_TABLE, np.zeros((1, 4), np.float32)])
-
-
-def one_hot_from_codes(codes: torch.Tensor,
-                       dtype=torch.float32) -> torch.Tensor:
-    """uint8 genome codes (N, L) -> fractional one-hot (N, L, 4), on the
-    device of ``codes``; code 15 one-hots to zeros."""
-    return constant(_ONE_HOT16, codes.device, dtype)[codes.long()]
-
 
 def BNConv(in_channels: int, out_channels: int, kernel_size: int,
            relu: bool = False) -> nn.Sequential:

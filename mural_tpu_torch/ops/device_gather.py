@@ -3,14 +3,16 @@ prediction (counterpart of ``mural_tpu/ops/device_gather.py``).
 
 Genome-wide prediction uploads each chromosome chunk's codes once (one
 1-D uint8 tensor, :func:`iter_code_chunks`) and sends per batch only the
-window starts and strands.  Windows are rows of the chunk's
-``unfold(0, w, 1)`` view picked by start, so no ``(B, w)`` index matrix
-is built (1024 x 8000 int64 would be 65 MB per INDEL batch).  The
-complement and digit lookups index 15-entry tables, and the one-hot of a
-reverse-strand row is the flip of the forward one-hot,
-``one_hot(revcomp(c)) == one_hot(c)[:, ::-1, ::-1]``.  This is plain
-torch, not a kernel: the JAX package's iota-matmul lookups and 128-byte
-row gather work round TPU gathers, which the card does not need.
+window starts and strands.  The distal one-hot is kernel K4
+(:func:`mural_tpu_torch.ops.window_one_hot.window_one_hot`): one pass
+from the chunk's codes to the strand-resolved one-hot, the flip of the
+forward one-hot on a reverse-strand row,
+``one_hot(revcomp(c)) == one_hot(c)[:, ::-1, ::-1]``.  The local ids and
+the fused forward's codes are plain torch: windows are rows of the
+chunk's ``unfold(0, w, 1)`` view picked by start, so no ``(B, w)`` index
+matrix is built, and the complement and digit lookups index 15-entry
+tables (the JAX package's iota-matmul lookups and 128-byte row gather
+work round TPU gathers, which the card does not need).
 
 The encodes are bit-identical to the host pipeline's
 (:mod:`mural_tpu_torch.genome.encode`): the categorical ids as
@@ -29,7 +31,7 @@ import torch
 from mural_tpu_torch.device import constant
 from mural_tpu_torch.genome import encode as enc
 from mural_tpu_torch.genome.fasta import COMPLEMENT, N_CODE, Genome
-from mural_tpu_torch.models.layers import one_hot_from_codes
+from mural_tpu_torch.ops.window_one_hot import window_one_hot
 
 
 def _windows(chunk: torch.Tensor, start: torch.Tensor,
@@ -76,9 +78,8 @@ def make_batch_encoder(local_radius: int, local_order: int,
     dw = enc.window_size(distal_radius, 1, model_type)
 
     def encode(chunk, lstart, dstart, neg):
-        oh = one_hot_from_codes(_windows(chunk, dstart, dw))
-        oh = torch.where(neg[:, None, None], oh.flip((1, 2)), oh)
-        return _local_ids(chunk, lstart, neg, lw, local_order), oh
+        return (_local_ids(chunk, lstart, neg, lw, local_order),
+                window_one_hot(chunk, dstart, dw, neg))
 
     return encode, lw, dw
 

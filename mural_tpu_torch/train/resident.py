@@ -16,12 +16,14 @@ the host sends one row array per epoch:
   the host path, from the same ``iter_batch_rows`` and the same rng
   draws, as one ``(n_steps, B)`` array uploaded per epoch.
 
-A batch's windows are rows of ``arena.unfold(0, dw, 1)`` picked by
-start, strand-resolved on the device with the helpers of
-``ops/device_gather.py``: the fused stem's codes reverse-complemented
-through the complement table, the one-hot flipped on both axes.  The
-JAX package's TPU workarounds (the ``(R, 128)`` row view, the blocked
-gather, the iota-matmul complement) are not needed on the card.
+A batch's windows start at its sites' arena starts and are
+strand-resolved on the device: the unfused model's one-hot by kernel K4
+(``ops/window_one_hot.py``: one pass from the arena's codes, the minus
+rows flipped on both axes), the fused stem's codes as rows of
+``arena.unfold(0, dw, 1)`` reverse-complemented through the complement
+table (``ops/device_gather.py``).  The JAX package's TPU workarounds
+(the ``(R, 128)`` row view, the blocked gather, the iota-matmul
+complement) are not needed on the card.
 :func:`resident_epoch` runs the steps in groups of K
 (``train/graphs.py``: one CUDA graph replay per group when K > 1);
 :func:`resident_eval` runs validation on padded rows and masks.
@@ -38,8 +40,8 @@ import torch
 from mural_tpu_torch.data.batcher import iter_batch_rows
 from mural_tpu_torch.genome import encode as enc
 from mural_tpu_torch.genome.fasta import N_CODE
-from mural_tpu_torch.models.layers import one_hot_from_codes
 from mural_tpu_torch.ops.device_gather import _strand_codes, _windows
+from mural_tpu_torch.ops.window_one_hot import window_one_hot
 from mural_tpu_torch.train.steps import eval_step
 
 
@@ -128,14 +130,14 @@ class ResidentData:
     def batch(self, rows: torch.Tensor, fused_stem: bool):
         """``(B,)`` int64 row ids -> ``(y, cat, distal, cont)``: labels and
         k-mer ids as int64; ``distal`` the strand-resolved codes ``(B, dw)``
-        uint8 for the fused stem, else their one-hot ``(B, dw, 4)``."""
-        win = _windows(self.arena, self.astart[rows], self.distal_width)
-        neg = self.neg[rows]
+        uint8 for the fused stem, else their one-hot ``(B, dw, 4)`` float32
+        (kernel K4 on the card)."""
+        start, neg = self.astart[rows], self.neg[rows]
         if fused_stem:
+            win = _windows(self.arena, start, self.distal_width)
             distal = _strand_codes(win.long(), neg).to(torch.uint8)
         else:
-            oh = one_hot_from_codes(win)
-            distal = torch.where(neg[:, None, None], oh.flip((1, 2)), oh)
+            distal = window_one_hot(self.arena, start, self.distal_width, neg)
         return (self.y[rows].long(), self.cat[rows].long(), distal,
                 None if self.cont is None else self.cont[rows])
 
