@@ -8,7 +8,8 @@ Phases (any failure raises and the script exits non-zero):
 
 1. setup: print the card's name and power limit, build the CUDA kernels
    (``mural_tpu_torch/ops/csrc/*.cu``: K1 ``code_conv1d``, K2/K3
-   ``code_conv_pool``, K4 ``window_one_hot``) with one nvcc each, all
+   ``code_conv_pool``, K4 ``window_one_hot``, K5 ``batch_norm``) with
+   one nvcc each, all
    started together, write a
    synthetic FASTA and two SNV and two INDEL BEDs from ``--seed``, and
    write two checkpoint triples with the port itself: SNVNet2 and the
@@ -55,20 +56,23 @@ Phases (any failure raises and the script exits non-zero):
    both checkpoint triples, finite metrics (the
    regional ``score`` included) in both ``epoch_<n>_metrics.txt`` and in
    ``progress.csv``, K2 launched twice per train step and validation
-   batch and K3 twice per train step (a replay counts the launches its
+   batch and K3 twice per train step, K5 80 times per train step (its
+   20 BatchNorms of 3-D activations; a replay counts the launches its
    graph recorded); then ``get_best_model`` and
    ``predict --fused_inference`` on the best triple; then one epoch with
    ``--fused_stem off --save_valid_preds --poisson_calib --resident_data
    off --steps_per_dispatch 1`` (host-fed, one eager step per batch), whose
-   ``checkpoint_0/model.valid_preds.tsv.gz`` has the predict schema and
-   whose log has the Poisson-calibrated evaluation lines;
+   ``checkpoint_0/model.valid_preds.tsv.gz`` has the predict schema,
+   whose log has the Poisson-calibrated evaluation lines, and which
+   launches K5 88 times per train step (22 BatchNorms without the fused
+   stem);
 8. ``mural_snv evaluate`` (k-mer and regional; then ``--kmer_only
    --kmer_length 5``) on phase 6's fused TSV and the synthetic FASTA:
    six files with their headers, each ``corr.txt`` with 3 finite rows;
    ``calc_scaling_factor --genomewide_mu 1e-8 --do_scaling`` and ``scale``
    with the same factor: the two scaled files equal line for line,
    probabilities summing to 1 within ``%.4g``; the seconds of each;
-9. the INDEL path, which runs K4 and none of K1-K3: the U-Net at
+9. the INDEL path, which runs K4 and K5 and none of K1-K3: the U-Net at
    the ``mural_indel train`` defaults (8000-bp windows, down_list
    1,4,5,5,5,2, 8 channels, k 7) on the card against the CPU for both
    ``use_reverse`` variants (B=4, <= 1e-4), its forward's device ms at
@@ -81,7 +85,9 @@ Phases (any failure raises and the script exits non-zero):
    --pred_batch_size 1024`` of ``INDEL_SITES`` sites (``prob0..prob7``
    summing to 1, sites/s)
    and ``evaluate --kmer_length 4`` on its TSV; K1, K2 and K3 launched
-   0 times in the phase, K4 in each of its three parts (counts kept);
+   0 times in the phase, K4 in each of its three parts, K5 144 times a
+   U-Net step in the train step and the CLI's parts and not in the eval
+   forward (counts kept);
 10. the rest of the SNV family and the track features, at the CLI
     default widths: two seeded bedGraph tracks (integer coverage in
     100-bp steps with radius 50, gzipped fractional scores in 1,000-bp
@@ -244,16 +250,28 @@ Phases (any failure raises and the script exits non-zero):
     plain version, and of ``F.embedding(codes.long(), table)`` on the
     windows (a yardstick the port never calls); the device ops of one
     INDEL map batch's encode (B=4096);
+19. (run after phase 18) K5, the train-mode BatchNorm of (N, C, L)
+    activations, against a float64 reference at every BatchNorm plane
+    of one U-Net train step (B=128, W=8000) and of the SNV towers
+    (B=128, L=2001), float32 and bf16; at each plane the device ms of
+    forward + backward of K5, of cuDNN's BatchNorm (a yardstick the port
+    no longer calls in train mode) and of the plain composition beside
+    K5's byte bound, and their sums over a step; one eager U-Net train
+    step (AdamW, B=128) with K5 and with cuDNN's BatchNorm: device ms,
+    the host's untraced issue ms and the wall ms of a step, and K5's
+    launches a step (144);
 14. last, after phase 17: a JSON line of the kernels (with
     ``launches_phase11``, ``launches_phase12``, ``launches_phase13``,
     ``launches_phase16``, ``launches_phase17``, the bf16 mode's records
     with ``launches_phase15``, K4's with ``launches_phase9`` and
-    ``launches_phase12``) and a timing line.
+    ``launches_phase12``, K5's with ``launches_phase9`` and
+    ``launches_phase7``) and a timing
+    line.
 
 The last line of standard output is the device record
 ``{"ok": true, "device": {...}}``.  ``--only_kernels`` runs the setup
 (without the synthetic genome), phases 2-3, phase 15's kernel checks and
-phase 18, prints the kernels' JSON line and exits 0 without the device
+phases 18-19, prints the kernels' JSON line and exits 0 without the device
 record: a quick check of the kernels while they change.  Without a CUDA
 device, or without the rest of the repository beside it, the script
 exits non-zero and prints no result.  Scratch files go to ``build/chip_smoke/`` beside this script
@@ -313,6 +331,10 @@ INDEL_TRAIN = 20_000    # sites to train on
 INDEL_TSV_HEADER = ["chrom", "start", "end", "strand", "mut_type"] + [
     f"prob{i}" for i in range(8)]
 CHROMS = {"chr1": 3_000_000, "chr2": 1_000_000}
+# K5's launches a train step (4 a BatchNorm of a 3-D activation): the
+# SNVNet2 towers' 20 BatchNorms after the fused stem, 22 without it; the
+# U-Net's 36 (use_reverse: the stem's BatchNorm runs twice)
+K5_SNV_FUSED, K5_SNV_UNFUSED, K5_UNET = 80, 88, 144
 # (name, pool kernel, pool padding) of each tower's stem, tower 2 first
 STEMS = (("tower 2 (Bx401)", 15, 7), ("tower 1 (Bx201 crop)", 3, 1))
 # what device_ms timed with CUDA events, the profiler having seen nothing
@@ -380,8 +402,9 @@ def build_kernels():
     from mural_tpu_torch import native
     from mural_tpu_torch.ops import fused_code_conv as fcc
     from mural_tpu_torch.ops import fused_train_stem as fts
+    from mural_tpu_torch.ops import batch_norm as bn
     from mural_tpu_torch.ops import window_one_hot as wo
-    libs = (fcc.LIBRARY, fts.LIBRARY, wo.LIBRARY)
+    libs = (fcc.LIBRARY, fts.LIBRARY, wo.LIBRARY, bn.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs) + 1) as ex:
         builds = [ex.submit(lib.load) for lib in libs]
@@ -706,6 +729,240 @@ def phase_k4(dev, gen):
         f"INDEL map encode (B=4096, W={dw})")
     return {"max_abs_err": 0.0, "cases": len(checks), "timings": out,
             "indel_map_encode_trace": encode_trace}
+
+
+# (N, C, L): calls a step of every train-mode BatchNorm of one U-Net step
+# at the human INDEL recipe (B=128, W=8000; the use_reverse stem twice,
+# c and 2c channels a level, encoder and decoder, out_conv's) and of one
+# SNVNet2 step's towers after the fused stem at the human SNV recipe (L =
+# 2001; 4 at the first pooled length, 5 at the second, 1 at the third)
+def k5_step_shapes():
+    B, L, k = TRAIN_BATCH, 2 * INDEL_CONFIG["distal_radius"], \
+        INDEL_CONFIG["CNN_kernel_size"]
+    ch = [INDEL_CONFIG["CNN_out_channels"] * (i + 1) for i in range(6)]
+    lens, n = [], L
+    for s in INDEL_CONFIG["down_list"]:
+        n = (n + 2 * ((k - 1) // 2) - k) // s + 1
+        lens.append(n)
+    unet = {(B, 4, L): 2}
+    for lv, (c, n) in enumerate(zip(ch, lens)):
+        times = 2 if lv == 5 else 4          # encoder, and decoder below 5
+        unet[(B, c, n)] = unet.get((B, c, n), 0) + times
+        unet[(B, 2 * c, n)] = unet.get((B, 2 * c, n), 0) + times // 2
+    unet[(B, ch[0], lens[0])] += 1            # out_conv
+    snv = {}
+    for L0, pools in ((2001, ((15, 15, 7), (7, 7, 3), (3, 3, 1))),
+                      (201, ((3, 3, 1),) * 3)):
+        n, lens = L0, []
+        for pk, ps, pp in pools:
+            n = (n + 2 * pp - pk) // ps + 1
+            lens.append(n)
+        for n, times in zip(lens, (4, 5, 1)):
+            snv[(B, 32, n)] = times
+    return {"indel": unet, "snv": snv}
+
+
+def k5_bound(N, C, L):
+    """K5's forward and backward on an (N, C, L) float32 plane: x in, y
+    out; x and dy in, dx out."""
+    return bound(5 * 4 * N * C * L, 0)
+
+
+def k5_check(shape, dtype, dev, gen):
+    """K5 forward and backward on one plane against the float64 reference:
+    the worst error of y and dx over its bound (<= 1 passes; bounds as
+    ``tests/test_torch_port_batch_norm.py test_k5_matches_float64``), and
+    whether dweight, dbias and the running statistics are within theirs."""
+    import torch
+    from mural_tpu_torch.ops import batch_norm as bn
+    N, C, L = shape
+    x = (torch.randn(shape, generator=gen) * (0.5 + 3 * torch.rand(
+        (1, C, 1), generator=gen)) + 2 * torch.randn((1, C, 1),
+                                                     generator=gen))
+    g = torch.randn(shape, generator=gen)
+    x, g = x.to(dev, dtype), g.to(dev, dtype)
+    m = bn.BatchNorm1d(C).to(dev)
+    with torch.no_grad():
+        m.weight.uniform_(0.5, 1.5)
+        m.bias.normal_(0, 0.3)
+    w, b = m.weight.detach().double(), m.bias.detach().double()
+    xg = x.clone().requires_grad_()
+    y = m(xg)
+    y.backward(g)
+    rm, rv = m.running_mean, m.running_var      # from 0 and 1
+    x64, g64 = x.double(), g.double()
+    M = N * L
+    mean = x64.mean((0, 2))
+    xm = x64 - mean[:, None]
+    var = (xm * xm).mean((0, 2))
+    rstd = 1 / torch.sqrt(var + 1e-5)
+    xhat = xm * rstd[:, None]
+    ry = xhat * w[:, None] + b[:, None]
+    db, dw = g64.sum((0, 2)), (g64 * xhat).sum((0, 2))
+    rdx = (w * rstd)[:, None] * (g64 - db[:, None] / M
+                                 - xhat * dw[:, None] / M)
+    worst = 0.0
+    for got, want in ((y, ry), (xg.grad, rdx)):
+        err = (got.detach().double() - want).abs()
+        bnd = 1e-5 * want.abs().max()
+        if dtype == torch.bfloat16:
+            bnd = bnd + 2.0 ** -7 * want.abs()
+        worst = max(worst, float((err / bnd).max()))
+    sums = (torch.all((m.weight.grad.double() - dw).abs()
+                      <= 1e-5 * (g64 * xhat).abs().sum((0, 2)))
+            and torch.all((m.bias.grad.double() - db).abs()
+                          <= 1e-5 * g64.abs().sum((0, 2)))
+            and torch.all((rm.double() - 0.1 * mean).abs()
+                          <= 1e-5 * mean.abs().clamp(min=1))
+            and torch.all((rv.double() - (0.9 + 0.1 * var * M / (M - 1)))
+                          .abs() <= 1e-5 * rv.double()))
+    return worst, bool(sums)
+
+
+def bn_composition(x, weight, bias, eps=1e-5):
+    """Train-mode BatchNorm's forward written out in plain torch ops
+    (``var_mean``, then the affine), the K5 table's plain column; autograd
+    gives its backward."""
+    import torch
+    var, mean = torch.var_mean(x, dim=(0, 2), correction=0)
+    scale = torch.rsqrt(var + eps) * weight
+    return (x - mean[:, None]) * scale[:, None] + bias[:, None]
+
+
+def phase_k5(dev, gen, seed):
+    """K5 against the float64 reference at every BatchNorm plane of one
+    U-Net step (B=128, W=8000) and of the SNV towers (B=128, L=2001) in
+    float32 and bf16; at each plane the device ms of forward + backward
+    of K5, of cuDNN's BatchNorm (``nn.BatchNorm1d``, a yardstick the port
+    no longer calls in train mode on a card) and of the plain composition
+    (:func:`bn_composition`), beside
+    K5's byte bound, and their sums over one step; then one eager U-Net
+    train step at the benchmark's widths (AdamW through
+    ``GraphOptimizer``, B=128) with K5 and with cuDNN's BatchNorm: the
+    device ms of a step, the host's untraced issue ms of one step onto an
+    idle card, and the ms a step of ten issued back to back."""
+    import torch
+    import torch.nn.functional as F
+    from mural_tpu_torch.ops import batch_norm as bn
+    checks, planes, per_step = {}, {}, {}
+    for kind, shapes in k5_step_shapes().items():
+        total = {"ms": 0.0, "cudnn_ms": 0.0, "plain_ms": 0.0,
+                 "bound_ms": 0.0, "calls": 0, "elements_per_window": 0}
+        for shape, times in shapes.items():
+            N, C, L = shape
+            tag = "x".join(map(str, shape))
+            for dtype in (torch.float32, torch.bfloat16):
+                worst, sums = k5_check(shape, dtype, dev, gen)
+                checks[f"{kind} {tag} {dtype} y, dx"] = worst <= 1.0
+                checks[f"{kind} {tag} {dtype} dweight, dbias, running"] = \
+                    sums
+            x = torch.randn(shape, generator=gen).to(dev).requires_grad_()
+            g = torch.randn(shape, generator=gen).to(dev)
+            ours, theirs = bn.BatchNorm1d(C).to(dev), \
+                torch.nn.BatchNorm1d(C).to(dev)
+            p = [torch.ones(C, device=dev, requires_grad=True),
+                 torch.zeros(C, device=dev, requires_grad=True)]
+
+            def fwd_bwd(fn, params):
+                # the gradients returned, not accumulated into x.grad
+                # (which would add a pass over x to every timing)
+                return lambda: torch.autograd.grad(fn(x), (x, *params), g)
+
+            k5 = fwd_bwd(ours, (ours.weight, ours.bias))
+            cudnn = fwd_bwd(theirs, (theirs.weight, theirs.bias))
+            rec = {
+                "ms": device_ms(k5, what=f"k5 {tag}"),
+                "cudnn_ms": device_ms(cudnn, what=f"k5_cudnn {tag}"),
+                "plain_ms": device_ms(
+                    fwd_bwd(lambda t: bn_composition(t, *p), p),
+                    what=f"k5_plain {tag}"),
+                "call_ms": cuda_ms(k5), "cudnn_call_ms": cuda_ms(cudnn),
+                "calls_a_step": times}
+            rec["bound_ms"], rec["bound_by"] = k5_bound(*shape)
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+            rec["cudnn_bound_share"] = rec["bound_ms"] / rec["cudnn_ms"]
+            planes[f"{kind} {tag}"] = rec
+            log(f"K5 {kind} {tag}: " + json.dumps(rec))
+            for key in ("ms", "cudnn_ms", "plain_ms", "bound_ms"):
+                total[key] += times * rec[key]
+            total["calls"] += times
+            total["elements_per_window"] += times * C * L
+            del x, g
+        total["bound_share"] = total["bound_ms"] / total["ms"]
+        total["cudnn_bound_share"] = total["bound_ms"] / total["cudnn_ms"]
+        per_step[kind] = total
+        log(f"K5 per {kind} train step: " + json.dumps(total))
+    check_all("K5 against the float64 reference", checks)
+    step = k5_indel_step(dev, seed)
+    return {"cases": len(checks), "planes": planes, "per_step": per_step,
+            "indel_step": step}
+
+
+def k5_indel_step(dev, seed):
+    """One eager U-Net train step at the benchmark's widths with K5 and
+    with cuDNN's BatchNorm (the same weights, the port's BatchNorms'
+    class set back to ``nn.BatchNorm1d``): device ms of a step (profiler),
+    the host's issue ms of one step onto an idle card (the median of 10,
+    each after a synchronise: untraced, nothing waits on the card), and
+    the wall ms a step of 10 issued back to back."""
+    import torch
+    from mural_tpu_torch.ops import batch_norm as bn
+    from mural_tpu_torch.train.optim import GraphOptimizer, LRSchedule
+    from mural_tpu_torch.train.steps import TrainState, step_update
+    gen = torch.Generator().manual_seed(seed + 20)
+    base = indel_model(seed + 20)
+    B, W = TRAIN_BATCH, 2 * INDEL_CONFIG["distal_radius"]
+    distal = torch.eye(4)[torch.randint(0, 4, (B, W), generator=gen)]
+    distal, y = distal.to(dev), torch.randint(0, 8, (B,), generator=gen)
+    y, mask = y.to(dev), torch.ones(B, device=dev)
+    cat = torch.zeros((B, 12), dtype=torch.long, device=dev)
+    out = {}
+    for name in ("k5", "cudnn"):
+        model = copy.deepcopy(base).to(dev)
+        if name == "cudnn":
+            for m in model.modules():
+                if type(m) is bn.BatchNorm1d:
+                    m.__class__ = torch.nn.BatchNorm1d
+        opt = GraphOptimizer("AdamW", model.parameters(), 0.01)
+        state = TrainState(model, opt, LRSchedule.build(
+            "StepLR", 1e-3, 0.98, B, B * 1000, 1e-4, 1e-6))
+        opt.scalars.copy_(torch.tensor(opt.step_scalars(1e-3, 1)))
+
+        def one():
+            return step_update(state, y, cat, distal, mask)
+
+        def steps(n):
+            for _ in range(n):
+                one()
+            torch.cuda.synchronize()
+
+        steps(3)
+        issue = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one()
+            issue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(10)
+        wall = (time.perf_counter() - t0) / 10 * 1e3
+        before = bn.LAUNCHES
+        steps(1)
+        launches = bn.LAUNCHES - before
+        out[name] = {"device_ms": device_busy_ms(lambda: steps(5)) / 5,
+                     "host_issue_ms": float(np.median(issue)),
+                     "host_issue_ms_range": [min(issue), max(issue)],
+                     "wall_ms": wall, "k5_launches_a_step": launches}
+        log(f"U-Net eager train step (B={B}, W={W}), {name} BatchNorm: "
+            + json.dumps(out[name]))
+        del model, state, opt
+    check_all("U-Net step", {
+        f"K5 launched {K5_UNET} times a step (36 BatchNorms of 3-D "
+        "activations)": out["k5"]["k5_launches_a_step"] == K5_UNET,
+        "no K5 launch with cuDNN's BatchNorm":
+            out["cudnn"]["k5_launches_a_step"] == 0})
+    return out
 
 
 def check_stem_case(name, codes, table, bias, pk, pp, gen, bf16=False):
@@ -1225,15 +1482,16 @@ def cli_train(cli, work, fasta, bed, name, cuda_id, extra,
               command="train"):
     """One ``train`` (or ``transfer``) run through the CLI from ``work``;
     returns its first trial's directory and per-epoch records (every
-    trial's in ``trials``), its printed lines and the K2/K3 launches
-    counted from 0 just before it."""
+    trial's in ``trials``), its printed lines and the K2/K3 and K5
+    launches counted from 0 just before it."""
     import torch
+    from mural_tpu_torch.ops import batch_norm as bn
     from mural_tpu_torch.ops import fused_train_stem as fts
     argv = [command, "--ref_genome", fasta, "--train_data", bed,
             "--experiment_name", name, "--n_trials", "1", "--batch_size",
             str(TRAIN_BATCH), "--valid_ratio", "0.2", "--split_seed", "0",
             "--cuda_id", str(cuda_id), *extra]
-    fts.FWD_LAUNCHES = fts.BWD_LAUNCHES = 0
+    fts.FWD_LAUNCHES = fts.BWD_LAUNCHES = bn.LAUNCHES = 0
     cwd = os.getcwd()
     os.chdir(work)
     try:
@@ -1244,14 +1502,15 @@ def cli_train(cli, work, fasta, bed, name, cuda_id, extra,
         seconds = time.perf_counter() - t0
     finally:
         os.chdir(cwd)
-    launches = (fts.FWD_LAUNCHES, fts.BWD_LAUNCHES)
+    launches = (fts.FWD_LAUNCHES, fts.BWD_LAUNCHES, bn.LAUNCHES)
     exp = work / "results" / name
     trials = {d: trial_epochs(exp / d) for d in sorted(os.listdir(exp))
               if d.startswith("Train_")}
     first = min(trials, key=lambda d: d.rsplit("_", 1)[-1])
     return {"rc": rc, "seconds": seconds, "trial": exp / first,
             "epochs": trials[first], "trials": trials, "lines": lines,
-            "k2": launches[0], "k3": launches[1], "n_trials": len(trials)}
+            "k2": launches[0], "k3": launches[1], "k5": launches[2],
+            "n_trials": len(trials)}
 
 
 def phase_train_cli(work, fasta, bed, n_train, cuda_id):
@@ -1292,8 +1551,11 @@ def phase_train_cli(work, fasta, bed, n_train, cuda_id):
         f"K2 launched 2 x ({steps} train steps + {vbatches} validation "
         f"batches)": run["k2"] == 2 * (steps + vbatches),
         f"K3 launched 2 x {steps} train steps": run["k3"] == 2 * steps,
+        f"K5 launched {K5_SNV_FUSED} x {steps} train steps (CUDA graph "
+        "replays included)": run["k5"] == K5_SNV_FUSED * steps > 0,
     })
-    log(f"train --fused_stem on: {run['seconds']:.3f} s; epochs "
+    log(f"train --fused_stem on: {run['seconds']:.3f} s; K5 launches "
+        f"{run['k5']}; epochs "
         + json.dumps(epochs))
 
     out = io.StringIO()
@@ -1336,6 +1598,7 @@ def phase_train_cli(work, fasta, bed, n_train, cuda_id):
     valid_preds = off["trial"] / "checkpoint_0" / "model.valid_preds.tsv.gz"
     vp = read_tsv(valid_preds) if valid_preds.exists() else ([], [], None)
     off_log = (off["trial"] / "training.log").read_text()
+    off_steps = sum(e["train_steps"] for e in off["epochs"])
     check_all("train --fused_stem off --save_valid_preds --poisson_calib "
               "--resident_data off --steps_per_dispatch 1", {
         "exit code 0": off["rc"] == 0,
@@ -1344,6 +1607,8 @@ def phase_train_cli(work, fasta, bed, n_train, cuda_id):
             (off["trial"] / "checkpoint_0" / f).exists()
             for f in ("model", "model.config.pkl", "model.fdiri_cal.pkl")),
         "no K2/K3 launch": off["k2"] == 0 and off["k3"] == 0,
+        f"K5 launched {K5_SNV_UNFUSED} x {off_steps} eager train steps":
+            off["k5"] == K5_SNV_UNFUSED * off_steps > 0,
         "checkpoint_0/model.valid_preds.tsv.gz in the predict schema":
             vp[0] == TSV_HEADER and len(vp[1]) > 0,
         "the log has the (after Poisson_cal) evaluation lines": all(
@@ -1354,6 +1619,7 @@ def phase_train_cli(work, fasta, bed, n_train, cuda_id):
     log(f"train --fused_stem off: {off['seconds']:.3f} s; epochs "
         + json.dumps(off["epochs"]))
     run["best_model"] = model_path
+    run["k5_unfused"] = off["k5"]
     return run, off
 
 
@@ -1506,11 +1772,14 @@ def kernel_launches():
 
 
 def counted(fn, *args):
-    """``fn(*args)`` with K1-K4 counted from 0; returns (result, K1-K3
-    counts); K4's is ``window_one_hot.LAUNCHES``."""
+    """``fn(*args)`` with K1-K5 counted from 0; returns (result, K1-K3
+    counts); K4's is ``window_one_hot.LAUNCHES``, K5's
+    ``batch_norm.LAUNCHES``."""
+    from mural_tpu_torch.ops import batch_norm as bn
     from mural_tpu_torch.ops import fused_code_conv as fcc
     from mural_tpu_torch.ops import fused_train_stem as fts
     from mural_tpu_torch.ops import window_one_hot as wo
+    bn.LAUNCHES = 0
     fcc.LAUNCHES = fts.FWD_LAUNCHES = fts.BWD_LAUNCHES = wo.LAUNCHES = 0
     out = fn(*args)
     return out, kernel_launches()
@@ -1725,9 +1994,10 @@ def phase_indel_cli(work, fasta, bed, train_bed, cuda_id):
 def phase_indel(work, fasta, model_path, beds, dev, seed):
     """The INDEL path: forward, train step and CLI, with K1-K3 counted
     from 0 around each part; none of them may launch."""
+    from mural_tpu_torch.ops import batch_norm as bn
     from mural_tpu_torch.ops import window_one_hot as wo
     bed, train_bed = beds
-    out, launches, k4 = {}, [], {}
+    out, launches, k4, k5 = {}, [], {}, {}
     for name, fn, args in (
             ("forward", phase_indel_forward, (model_path, dev, seed)),
             ("train_step", phase_indel_step, (dev, seed, fasta, train_bed)),
@@ -1737,14 +2007,21 @@ def phase_indel(work, fasta, model_path, beds, dev, seed):
         # the CLI part resets the counters itself and returns its own
         launches.append(out[name].pop("launches", counts))
         k4[name] = wo.LAUNCHES
+        k5[name] = bn.LAUNCHES
     total = [sum(c) for c in zip(*launches)]
     log(f"INDEL phase, K1/K2/K3 launches: {total}; K4 launches by part: "
-        f"{k4}")
+        f"{k4}; K5 launches by part: {k5}")
     check_all("INDEL phase", {
         "K1, K2 and K3 launched 0 times": total == [0, 0, 0],
-        "K4 launched in every part": all(k4.values())})
+        "K4 launched in every part": all(k4.values()),
+        f"K5 launched in the training parts only, {K5_UNET} times a "
+        "U-Net step": (
+            k5["forward"] == 0 and k5["train_step"] > 0 and k5["cli"] > 0
+            and k5["train_step"] % K5_UNET == 0
+            and k5["cli"] % K5_UNET == 0)})
     out["k1_k2_k3_launches"] = total
     out["k4_launches"] = k4
+    out["k5_launches"] = k5
     return out
 
 
@@ -4082,7 +4359,7 @@ def phase_cache(work, fasta, bed, family_bed, model_path, indel_path,
 def kernel_records(k1, k23, k1_launches, train_on, family=None,
                    later=None, genome=None, fed=None, k23_bf16=None,
                    mixed=None, parallel=None, cached=None, k4=None,
-                   indel=None):
+                   indel=None, k5=None):
     """The kernels' JSON records from phases 2-3; ``launches`` come from
     the main path's runs (None when it did not run): K1 from phase 6's
     fused predict, K2/K3 from phase 7's fused train (resident data, 8
@@ -4104,7 +4381,12 @@ def kernel_records(k1, k23, k1_launches, train_on, family=None,
     --with_h5``.  K4's record (``k4``, phase 18) takes its ``launches``
     from phase 12's INDEL ``predict_genome`` (``genome``) and
     ``launches_phase9`` from phase 9's parts (``indel``: the forward, the
-    train steps, and the CLI's train and predict)."""
+    train steps, and the CLI's train and predict).  K5's record (``k5``,
+    phase 19) gives its per-step sums over one U-Net train step's
+    BatchNorms; ``launches`` from phase 9's train steps,
+    ``launches_phase9`` from each of phase 9's parts and
+    ``launches_phase7`` from phase 7's fused train (``train_on``: CUDA
+    graph replays) and its unfused eager epoch."""
     p11 = None
     if later is not None:
         tr, ind = later["transfer"], later["indel_transfer"]["launches"]
@@ -4227,6 +4509,24 @@ def kernel_records(k1, k23, k1_launches, train_on, family=None,
                 name: run["k4_launches"] for name, run in genome.items()
                 if name != "bed_check"},
         })
+    if k5 is not None:
+        main = k5["per_step"]["indel"]
+        kernels.append({
+            "name": "batch_norm", "route": "cuda",
+            "source": "mural_tpu_torch/ops/csrc/batch_norm.cu",
+            "replaces": None,
+            "launches": indel and indel["k5_launches"]["train_step"],
+            "max_abs_err": None, "cases": k5["cases"], "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "bytes", "library_ms": main["cudnn_ms"],
+            "per": "one U-Net train step's 36 BatchNorm calls, forward and "
+                   "backward: B=128, W=8000, float32",
+            "per_step": k5["per_step"], "planes": k5["planes"],
+            "indel_step": k5["indel_step"],
+            "launches_phase9": indel and indel["k5_launches"],
+            "launches_phase7": train_on and {
+                "fused": train_on["k5"], "unfused": train_on["k5_unfused"]},
+        })
     return kernels
 
 
@@ -4237,8 +4537,8 @@ def main(argv=None) -> int:
     ap.add_argument("--n_train", type=int, default=60_000)
     ap.add_argument("--only_kernels", action="store_true",
                     help="setup, phases 2-3, the bf16 mode's kernel "
-                         "checks and K4's phase 18 only, then the kernels' "
-                         "JSON line; no "
+                         "checks and phases 18-19 (K4, K5) only, then the "
+                         "kernels' JSON line; no "
                          "device record (for iterating on the kernels)")
     args = ap.parse_args(argv)
 
@@ -4298,10 +4598,12 @@ def main(argv=None) -> int:
     k23_bf16 = timed("k2_k3_bf16", phase_k2_k3, model, dev, gen, True)
     # 18. K4 against its plain version
     k4 = timed("k4", phase_k4, dev, gen)
+    # 19. K5 against the float64 reference, and the U-Net step with it
+    k5 = timed("k5", phase_k5, dev, gen, args.seed)
     if args.only_kernels:
         shutil.rmtree(work, ignore_errors=True)
         log(json.dumps({"kernels": kernel_records(
-            k1, k23, None, None, k23_bf16=k23_bf16, k4=k4)}))
+            k1, k23, None, None, k23_bf16=k23_bf16, k4=k4, k5=k5)}))
         log(json.dumps({"card": card, "build_s": t_build,
                         "phase_s": phase_s,
                         "timed_with_cuda_events": TIMED_WITH_EVENTS,
@@ -4320,7 +4622,7 @@ def main(argv=None) -> int:
     # 8. evaluate and scale phase 6's predictions
     evaluation = timed("evaluate_scale", phase_evaluate, work, fasta,
                        str(work / "pred_fused.tsv.gz"))
-    # 9. the INDEL path (no kernel of the port on it)
+    # 9. the INDEL path (K4 and K5; none of K1-K3)
     indel = timed("indel", phase_indel, work, fasta, indel_path, indel_beds,
                   dev, args.seed)
     # 10. the rest of the SNV family and the track features
@@ -4358,7 +4660,7 @@ def main(argv=None) -> int:
     # 14. results
     log(json.dumps({"kernels": kernel_records(
         k1, k23, fused["launches"], train_on, family, later, genome, fed,
-        k23_bf16, mixed, parallel, cached, k4, indel)}))
+        k23_bf16, mixed, parallel, cached, k4, indel, k5)}))
     log(json.dumps({
         "card": card, "build_s": t_build,
         "model_max_abs_err": model_err, **fwd_ms,

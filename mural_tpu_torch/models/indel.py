@@ -7,6 +7,8 @@ a residual inverted-bottleneck :class:`ConvBlock`.  The decoder mirrors
 it with nearest upsampling -> Conv -> BN -> ConvBlock and additive skip
 connections.  Head: two 1x1 convs (BN and ReLU between, Softplus after),
 global max over length, BN -> Dropout(0.1) -> Linear -> Softplus.
+Every BatchNorm is the port's ``BatchNorm1d`` (``ops/batch_norm.py``:
+torch's keys and state, kernel K5 in train mode on a card).
 
 ``use_reverse`` adds the strand-symmetrised stem
 ``conv(x) + flip(conv(revcomp(x)))``: for the ACGT one-hot, flipping the
@@ -27,6 +29,8 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+from mural_tpu_torch.ops.batch_norm import BatchNorm1d
 
 
 def check_geometry(width: int, downsize: Sequence[int]) -> None:
@@ -56,9 +60,9 @@ class ConvBlock(nn.Module):
         hidden = round(channels * expand_ratio)
         self.conv = nn.Sequential(
             nn.Conv1d(channels, hidden, 5, padding=2, bias=False),
-            nn.BatchNorm1d(hidden), nn.SiLU(),
+            BatchNorm1d(hidden), nn.SiLU(),
             nn.Conv1d(hidden, channels, 1, bias=False),
-            nn.BatchNorm1d(channels))
+            BatchNorm1d(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x + self.conv(x)
@@ -94,11 +98,11 @@ class UNetSmall(nn.Module):
         self.use_reverse = bool(use_reverse)
         if self.use_reverse:
             self.conv = nn.Sequential(
-                nn.Conv1d(in_channels, 4, k, padding=p), nn.BatchNorm1d(4))
+                nn.Conv1d(in_channels, 4, k, padding=p), BatchNorm1d(4))
         ch = [out_channels * (i + 1) for i in range(6)]
         self.uplblocks = nn.ModuleList(
             nn.Sequential(nn.Conv1d(c_in, c, k, stride=s, padding=p),
-                          nn.BatchNorm1d(c))
+                          BatchNorm1d(c))
             for c_in, c, s in zip([4 if use_reverse else in_channels]
                                   + ch[:5], ch, self.downsize))
         self.upblocks = nn.ModuleList(nn.Sequential(ConvBlock(c))
@@ -107,14 +111,14 @@ class UNetSmall(nn.Module):
         self.downlblocks = nn.ModuleList(
             nn.Sequential(UpsampleNearest(self.downsize[lv + 1]),
                           nn.Conv1d(ch[lv + 1], ch[lv], k, padding=p),
-                          nn.BatchNorm1d(ch[lv]))
+                          BatchNorm1d(ch[lv]))
             for lv in levels)
         self.downblocks = nn.ModuleList(nn.Sequential(ConvBlock(ch[lv]))
                                         for lv in levels)
         self.out_conv = nn.Sequential(
-            nn.Conv1d(ch[0], ch[0], 1), nn.BatchNorm1d(ch[0]), nn.ReLU(),
+            nn.Conv1d(ch[0], ch[0], 1), BatchNorm1d(ch[0]), nn.ReLU(),
             nn.Conv1d(ch[0], ch[0], 1), nn.Softplus())
-        self.out_fc = nn.Sequential(nn.BatchNorm1d(ch[0]), nn.Dropout(0.1),
+        self.out_fc = nn.Sequential(BatchNorm1d(ch[0]), nn.Dropout(0.1),
                                     nn.Linear(ch[0], n_class))
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,10 @@
 ``mural_tpu/models/layers.py:273-458``).
 
 Layout is channels-first ``(N, C, L)``, as in the reference torch model;
-torch's own ``BatchNorm1d`` (eps 1e-5), ``Conv1d`` and ``MaxPool1d``
-(-inf padding, floor length) carry the reference semantics, so none of
+torch's own ``Conv1d`` and ``MaxPool1d`` (-inf padding, floor length)
+and ``BatchNorm1d`` (eps 1e-5; the port's subclass
+:class:`~mural_tpu_torch.ops.batch_norm.BatchNorm1d`, which runs kernel
+K5 in train mode on a card) carry the reference semantics, so none of
 the JAX package's TPU workarounds are needed here.
 
 A tower fed ``(N, L)`` uint8 codes instead of a one-hot runs its first
@@ -19,6 +21,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from mural_tpu_torch.ops.batch_norm import BatchNorm1d
 from mural_tpu_torch.ops.fused_code_conv import fold_bn_conv_table
 from mural_tpu_torch.ops.fused_train_stem import (code_conv_pool,
                                                   hist_batch_stats)
@@ -34,7 +37,7 @@ def BNConv(in_channels: int, out_channels: int, kernel_size: int,
            relu: bool = False) -> nn.Sequential:
     """BatchNorm -> Conv1d ('same' zero padding), optional trailing ReLU:
     the reference's ``conv1``/``conv2``/``conv3`` Sequentials."""
-    layers = [nn.BatchNorm1d(in_channels),
+    layers = [BatchNorm1d(in_channels),
               nn.Conv1d(in_channels, out_channels, kernel_size,
                         padding=(kernel_size - 1) // 2)]
     if relu:
@@ -49,9 +52,9 @@ class ResBlock(nn.Module):
     def __init__(self, channels: int, kernel_size: int = 3):
         super().__init__()
         p = (kernel_size - 1) // 2
-        self.bn1 = nn.BatchNorm1d(channels)
+        self.bn1 = BatchNorm1d(channels)
         self.conv1 = nn.Conv1d(channels, channels, kernel_size, padding=p)
-        self.bn2 = nn.BatchNorm1d(channels)
+        self.bn2 = BatchNorm1d(channels)
         self.conv2 = nn.Conv1d(channels, channels, kernel_size, padding=p)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -62,7 +65,7 @@ class ResBlock(nn.Module):
 
 def DistalFC(channels: int, n_class: int, dropout: float) -> nn.Sequential:
     """BN -> Dropout -> Linear head (keys ``.0`` and ``.2``)."""
-    return nn.Sequential(nn.BatchNorm1d(channels), nn.Dropout(dropout),
+    return nn.Sequential(BatchNorm1d(channels), nn.Dropout(dropout),
                          nn.Linear(channels, n_class))
 
 

@@ -7,10 +7,17 @@ use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library in
 source or one of the headers (``csrc/*.cuh``) the sources share.
 Nothing here runs at import time, so CPU-only machines import the kernel
 modules freely.
+
+Each kernel module keeps its launch counters as module attributes (plain
+ints that callers read, and reset to 0 to count a run); the module
+counts a launch through :func:`count_launches`, which defers a launch
+that a CUDA graph records to each replay of the graph
+(:func:`captured_launches`, :func:`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -28,6 +35,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # ctypes argument types: every pointer and the stream as c_void_p, every
 # int as c_int, row strides as c_longlong
 PTR, INT, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+_COUNT_LOCK = threading.Lock()
+# capture stream -> {(module, counter): launches recorded on it}; keyed by
+# stream, not thread, because autograd runs backward kernels on its own
+# device thread
+_CAPTURED: Dict[int, Dict] = {}
 
 
 class KernelLibrary:
@@ -97,8 +110,11 @@ def check_launch(err: int, what: str) -> None:
 
 
 def current_stream(t) -> int:
+    """The raw ``cudaStream_t`` of torch's current stream on ``t``'s card:
+    ``torch.cuda.current_stream(t.device).cuda_stream``, read without
+    building a Stream object."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def launch(fn, device, *args) -> int:
@@ -106,7 +122,46 @@ def launch(fn, device, *args) -> int:
     as the thread's current device: the launch, and the kernel's
     shared-memory attribute, which CUDA keeps per device, go to that card
     whatever card the calling thread had current (a replica or a rank on
-    ``cuda:1``).  Returns the launcher's ``cudaError_t``."""
+    ``cuda:1``); where it is current already, the launcher is called
+    without entering ``torch.cuda.device``.  Returns the launcher's
+    ``cudaError_t``."""
     import torch
+    if torch.cuda.is_initialized() and \
+            device.index == torch.cuda.current_device():
+        return fn(*args)
     with torch.cuda.device(device):
         return fn(*args)
+
+
+def add_launches(tally: Dict) -> None:
+    """Add ``tally``'s ``{(module, counter): n}`` launches to the
+    counters (a graph's replay adds the launches it recorded)."""
+    with _COUNT_LOCK:
+        for (module, counter), n in tally.items():
+            setattr(module, counter, getattr(module, counter) + n)
+
+
+def count_launches(module, counter: str, n: int, stream: int) -> None:
+    """Count ``n`` launches made on ``stream`` in ``module``'s attribute
+    ``counter``: into the capture's tally while a CUDA graph records the
+    stream (a capture runs nothing), else at once."""
+    tally = _CAPTURED.get(stream)
+    if tally is None:
+        add_launches({(module, counter): n})
+    else:
+        key = (module, counter)
+        tally[key] = tally.get(key, 0) + n
+
+
+@contextlib.contextmanager
+def captured_launches(stream: "torch.cuda.Stream"):
+    """While a CUDA graph captures ``stream``, collect the launches made
+    on it into the yielded ``{(module, counter): n}`` tally instead of the
+    counters; each replay of the graph adds the tally
+    (:func:`add_launches`)."""
+    tally = {}
+    _CAPTURED[stream.cuda_stream] = tally
+    try:
+        yield tally
+    finally:
+        del _CAPTURED[stream.cuda_stream]

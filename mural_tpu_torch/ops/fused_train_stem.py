@@ -36,17 +36,17 @@ inputs in both.  The launch counters count each mode apart.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
-import threading
+import sys
 
 import torch
 
 from mural_tpu_torch.device import constant
 from mural_tpu_torch.genome.encode import ONE_HOT_TABLE
 from mural_tpu_torch.ops._build import (I64, INT, PTR, KernelLibrary,
-                                        check_launch, current_stream, launch)
+                                        check_launch, count_launches,
+                                        current_stream, launch)
 from mural_tpu_torch.ops._plan import (MAX_SMEM, MAX_THREADS, NUM_SMS,
                                        round_up, thread_runs)
 from mural_tpu_torch.ops.fused_code_conv import (NCODES, SENTINEL,
@@ -55,16 +55,14 @@ from mural_tpu_torch.ops.fused_code_conv import (NCODES, SENTINEL,
 # Launches of each CUDA kernel in this process (plain-version calls on
 # CPU tensors do not count).  Callers reset them to 0 to count a run.  A
 # launch that a CUDA graph records counts at each replay of the graph
-# (:func:`captured_launches`, :func:`add_launches`), not at its capture.
+# (``_build.py count_launches``), not at its capture.
 FWD_LAUNCHES = 0          # K2, float32 mode
 BWD_LAUNCHES = 0          # K3 (with its partial-sum reduce), float32 mode
 FWD_BF16_LAUNCHES = 0     # K2, bf16 mode
 BWD_BF16_LAUNCHES = 0     # K3, bf16 mode
-_COUNT_LOCK = threading.Lock()
-# capture stream -> the [K2, K3] launches recorded on it so far, followed
-# by [K2, K3] of the bf16 mode once it records one; keyed by stream, not
-# thread, because autograd runs K3 on its own device thread
-_CAPTURED = {}
+_COUNTERS = ("FWD_LAUNCHES", "BWD_LAUNCHES", "FWD_BF16_LAUNCHES",
+             "BWD_BF16_LAUNCHES")
+_THIS = sys.modules[__name__]
 
 LIBRARY = KernelLibrary("code_conv_pool", {
     # codes, row stride, table, bias, pooled, jstar, B, L, k, C, pk, pp,
@@ -314,7 +312,7 @@ def _fwd_kernel(codes, table, bias, pk, pp, bf16):
                  plan.grid, plan.threads, plan.smem, int(bf16), stream)
     check_launch(err, f"code_conv_pool forward (B={B}, L={L}, k={k}, "
                       f"C={C}, pk={pk}, bf16={bf16})")
-    _count(stream, 1, 0, bf16)
+    count_launches(_THIS, _COUNTERS[2 * bf16], 1, stream)
     return pooled, jstar
 
 
@@ -350,63 +348,20 @@ def _bwd_kernel(codes, jstar, g, k, pk, pp, bf16):
                  plan.threads, plan.grid, plan.smem, int(bf16), stream)
     check_launch(err, f"code_conv_pool backward (B={B}, L={L}, k={k}, "
                       f"C={C}, pk={pk}, bf16={bf16})")
-    _count(stream, 0, 1, bf16)
+    count_launches(_THIS, _COUNTERS[2 * bf16 + 1], 1, stream)
     return dtable
-
-
-def _count(stream: int, fwd: int, bwd: int, bf16: bool = False) -> None:
-    """Count launches made on ``stream`` in one mode: into its capture's
-    tally while a CUDA graph records the stream, else into the totals."""
-    tally = _CAPTURED.get(stream)
-    if tally is None:
-        add_launches(*((0, 0, fwd, bwd) if bf16 else (fwd, bwd)))
-        return
-    if bf16 and len(tally) == 2:
-        tally += [0, 0]
-    i = 2 if bf16 else 0
-    tally[i] += fwd
-    tally[i + 1] += bwd
-
-
-def add_launches(fwd: int, bwd: int, fwd_bf16: int = 0,
-                 bwd_bf16: int = 0) -> None:
-    """Add K2 and K3 launches of each mode to the totals (a graph's
-    replay adds the launches it recorded)."""
-    global FWD_LAUNCHES, BWD_LAUNCHES, FWD_BF16_LAUNCHES, BWD_BF16_LAUNCHES
-    with _COUNT_LOCK:
-        FWD_LAUNCHES += fwd
-        BWD_LAUNCHES += bwd
-        FWD_BF16_LAUNCHES += fwd_bf16
-        BWD_BF16_LAUNCHES += bwd_bf16
 
 
 def reset_launches() -> None:
     """Set every launch counter to 0."""
-    global FWD_LAUNCHES, BWD_LAUNCHES, FWD_BF16_LAUNCHES, BWD_BF16_LAUNCHES
-    with _COUNT_LOCK:
-        FWD_LAUNCHES = BWD_LAUNCHES = 0
-        FWD_BF16_LAUNCHES = BWD_BF16_LAUNCHES = 0
+    for counter in _COUNTERS:
+        setattr(_THIS, counter, 0)
 
 
 def launch_counts() -> dict:
     """The counters by kernel and mode."""
     return {"k2": FWD_LAUNCHES, "k3": BWD_LAUNCHES,
             "k2_bf16": FWD_BF16_LAUNCHES, "k3_bf16": BWD_BF16_LAUNCHES}
-
-
-@contextlib.contextmanager
-def captured_launches(stream: "torch.cuda.Stream"):
-    """While a CUDA graph captures ``stream``, count its K2/K3 launches
-    into the yielded ``[fwd, bwd]`` list (``[fwd, bwd, fwd_bf16,
-    bwd_bf16]`` once a bf16-mode launch is recorded) instead of the
-    totals: a capture runs nothing, and each replay adds the list
-    (:func:`add_launches`)."""
-    tally = [0, 0]
-    _CAPTURED[stream.cuda_stream] = tally
-    try:
-        yield tally
-    finally:
-        del _CAPTURED[stream.cuda_stream]
 
 
 def code_conv_pool_forward(codes, table, bias, pk: int, pp: int,

@@ -29,6 +29,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from mural_tpu_torch.ops import batch_norm
+
 
 class CrossRankBatchNorm(nn.BatchNorm1d):
     """``nn.BatchNorm1d`` with the global batch's statistics in train
@@ -76,7 +78,8 @@ class CrossRankBatchNorm(nn.BatchNorm1d):
 
 
 def convert_batchnorm(model: nn.Module) -> nn.Module:
-    """Swap every ``nn.BatchNorm1d`` of ``model`` for a
+    """Swap every ``nn.BatchNorm1d`` of ``model``, the port's
+    :class:`~mural_tpu_torch.ops.batch_norm.BatchNorm1d` included, for a
     :class:`CrossRankBatchNorm` that holds the same parameter and buffer
     tensors (an optimizer built before keeps them), in place; a module
     registered under two names stays one module."""
@@ -84,7 +87,7 @@ def convert_batchnorm(model: nn.Module) -> nn.Module:
     for parent in list(model.modules()):
         # _modules, not named_children(), which yields a module once
         for name, child in list(parent._modules.items()):
-            if type(child) is not nn.BatchNorm1d:
+            if type(child) not in (nn.BatchNorm1d, batch_norm.BatchNorm1d):
                 continue
             if id(child) not in swapped:
                 new = CrossRankBatchNorm(

@@ -49,6 +49,7 @@ from torch import nn
 from torch.func import functional_call, grad_and_value, stack_module_state
 from torch.func import vmap
 
+from mural_tpu_torch.ops import batch_norm
 from mural_tpu_torch.train.optim import (BETAS, EPS, MOMENTUM,
                                          GraphOptimizer, LRSchedule,
                                          _check_name)
@@ -66,10 +67,11 @@ class _Float32BatchNorm(nn.BatchNorm1d):
 
 def functional_model(model: nn.Module) -> nn.Module:
     """A parameter-free copy of ``model`` (on the meta device) for
-    ``functional_call``, its BatchNorm modules normalising in float32."""
+    ``functional_call``, its BatchNorm modules (torch's and the port's,
+    whose kernel K5 does not run under vmap) normalising in float32."""
     base = copy.deepcopy(model).to("meta")
     for m in base.modules():
-        if type(m) is nn.BatchNorm1d:
+        if type(m) in (nn.BatchNorm1d, batch_norm.BatchNorm1d):
             m.__class__ = _Float32BatchNorm
     return base
 

@@ -24,8 +24,8 @@ issues one replay where it issued every kernel of K steps.
   fails raises with the step configuration; there is no eager fallback.
   On the CPU every group runs eagerly: the same code, which the tests
   hold against K single steps of torch's optimizers.
-- The K2/K3 launches a capture records count at each replay
-  (``ops/fused_train_stem.py captured_launches``).
+- The kernel launches a capture records (K2/K3, K5) count at each
+  replay (``ops/_build.py captured_launches``).
 - The step is :func:`~mural_tpu_torch.train.steps.step_update` by
   default; a trial ensemble passes its own
   (``train/ensemble.py ensemble_step_update``), whose scalars hold a
@@ -43,7 +43,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from mural_tpu_torch.ops import fused_train_stem as fts
+from mural_tpu_torch.ops._build import add_launches, captured_launches
 from mural_tpu_torch.train.steps import TrainState, model_input, step_update
 from mural_tpu_torch.utils import spans
 
@@ -107,7 +107,7 @@ class StepGroups:
         self.graph = None
         self.stream = None
         self.static = self.static_scalars = self.static_losses = None
-        self.launches = (0, 0)      # K2, K3 launches of one replay
+        self.launches = {}          # kernel launches of one replay
 
     def describe(self) -> str:
         shapes = [None if t is None else tuple(t.shape) for t in self.static]
@@ -147,7 +147,7 @@ class StepGroups:
         current.wait_stream(self.stream)
         graph = torch.cuda.CUDAGraph()
         try:
-            with fts.captured_launches(self.stream) as tally, \
+            with captured_launches(self.stream) as tally, \
                     torch.cuda.graph(graph, stream=self.stream,
                                      capture_error_mode="thread_local"):
                 self.static_losses = run_steps(
@@ -156,7 +156,7 @@ class StepGroups:
         except RuntimeError as e:
             raise RuntimeError(f"CUDA graph capture of {self.describe()} "
                                f"failed: {e}") from e
-        self.graph, self.launches = graph, tuple(tally)
+        self.graph, self.launches = graph, tally
         return losses
 
     def _replay(self, scalars, inputs):
@@ -169,5 +169,5 @@ class StepGroups:
         except RuntimeError as e:
             raise RuntimeError(f"CUDA graph replay of {self.describe()} "
                                f"failed: {e}") from e
-        fts.add_launches(*self.launches)
+        add_launches(self.launches)
         return self.static_losses.clone()

@@ -19,6 +19,8 @@ import torch
 from mural_tpu_torch.models.init import init_weights
 from mural_tpu_torch.models.registry import build_model
 from mural_tpu_torch.ops import fused_train_stem as fts
+from mural_tpu_torch.ops._build import (add_launches, captured_launches,
+                                        count_launches)
 from mural_tpu_torch.train import loop
 from mural_tpu_torch.train.graphs import (StepGroups, epoch_scalars,
                                           steps_per_dispatch)
@@ -136,21 +138,24 @@ def test_default_steps_per_dispatch():
 
 def test_captured_launches_count_at_each_replay():
     """Launches on a stream that a graph is capturing go to the capture's
-    tally, not the totals; each replay adds the tally."""
+    tally, not the counters; each replay adds the tally."""
     class Stream:
         cuda_stream = 12345
 
     fwd0, bwd0 = fts.FWD_LAUNCHES, fts.BWD_LAUNCHES
-    with fts.captured_launches(Stream()) as tally:
-        fts._count(12345, 1, 0)
-        fts._count(12345, 0, 1)
-        fts._count(12345, 1, 0)
-        fts._count(999, 1, 0)          # another stream: counted now
-    assert tally == [2, 1]
+    with captured_launches(Stream()) as tally:
+        count_launches(fts, "FWD_LAUNCHES", 1, 12345)
+        count_launches(fts, "BWD_LAUNCHES", 1, 12345)
+        count_launches(fts, "FWD_LAUNCHES", 1, 12345)
+        # another stream: counted now
+        count_launches(fts, "FWD_LAUNCHES", 1, 999)
+    assert tally == {(fts, "FWD_LAUNCHES"): 2, (fts, "BWD_LAUNCHES"): 1}
     assert (fts.FWD_LAUNCHES, fts.BWD_LAUNCHES) == (fwd0 + 1, bwd0)
     for _ in range(3):
-        fts.add_launches(*tally)
-    fts._count(12345, 1, 1)            # no capture any more
+        add_launches(tally)
+    # no capture any more
+    count_launches(fts, "FWD_LAUNCHES", 1, 12345)
+    count_launches(fts, "BWD_LAUNCHES", 1, 12345)
     assert (fts.FWD_LAUNCHES, fts.BWD_LAUNCHES) == (fwd0 + 8, bwd0 + 4)
 
 
